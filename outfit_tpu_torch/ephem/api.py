@@ -1,0 +1,103 @@
+"""Ephemeris facade: batched heliocentric state queries.
+
+Port of the query half of ``outfit_tpu/ephem/api.py`` (``_interp``,
+``_sun``, ``_moon_embrel``, ``earth_ephemeris``), over tables from the
+analytic source or handed over as numpy arrays.  The Horizon and NAIF file
+parsers stay in the JAX package for now.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from outfit_tpu_torch.ephem.analytic import EMRAT, build_analytic_tables
+from outfit_tpu_torch.ephem.bodies import Body
+from outfit_tpu_torch.ephem.chebyshev import BodyTable, interpolate_body
+
+#: default coverage for the analytic source (MJD): 1960-01-01 .. 2060-01-01
+_ANALYTIC_SPAN = (36934.0, 73459.0)
+
+
+class JPLEphem:
+    """Planetary ephemeris over Chebyshev tables.
+
+    ``tables`` maps Body -> BodyTable (coefficients on one device).  Planet
+    tables may be SSB-centered (DE files) or heliocentric (analytic source,
+    no SUN table); queries return heliocentric states, subtracting the SUN
+    table when present.
+    """
+
+    def __init__(self, tables: Dict[Body, BodyTable], emrat: float = EMRAT, kind: str = "analytic"):
+        self.tables = tables
+        self.emrat = float(emrat)
+        self.kind = kind
+
+    @classmethod
+    def analytic(cls, t_start: float = _ANALYTIC_SPAN[0], t_end: float = _ANALYTIC_SPAN[1]) -> "JPLEphem":
+        """Built-in analytic source: the JAX package's numpy fit, so the
+        tables are bit-identical to ``outfit_tpu``'s."""
+        return cls(build_analytic_tables(t_start, t_end), kind="analytic")
+
+    @classmethod
+    def from_jax_tables(cls, tables, emrat: float = EMRAT, kind: str = "analytic") -> "JPLEphem":
+        """From ``{body: (t0, granule_days, coeffs ndarray (G, 3, C))}``, e.g.
+        the JAX package's ``JPLEphem.tables`` converted to numpy, so both
+        packages compute from the same coefficients."""
+        return cls(
+            {
+                Body(int(b)): BodyTable(
+                    float(t0), float(gran),
+                    torch.from_numpy(np.ascontiguousarray(c, dtype=np.float64).copy()),
+                )
+                for b, (t0, gran, c) in tables.items()
+            },
+            emrat=emrat,
+            kind=kind,
+        )
+
+    def to(self, device) -> "JPLEphem":
+        """The same ephemeris with its tables on ``device``."""
+        device = torch.device(device)
+        if all(t.coeffs.device == device for t in self.tables.values()):
+            return self
+        return JPLEphem(
+            {b: t.to(device) for b, t in self.tables.items()}, self.emrat, self.kind
+        )
+
+    # -- queries (batched) ----------------------------------------------------
+
+    def _interp(self, body: Body, mjd_tt, velocity=True):
+        return interpolate_body(self.tables[body], mjd_tt, velocity)
+
+    def _sun(self, mjd_tt, velocity=True):
+        if Body.SUN in self.tables:
+            return self._interp(Body.SUN, mjd_tt, velocity)
+        return 0.0, (0.0 if velocity else None)
+
+    def _moon_embrel(self, mjd_tt, velocity=True):
+        """Moon state relative to the EMB: a NAIF segment (301 rel 3) is
+        already Moon-rel-EMB; Horizon / analytic tables store the geocentric
+        Moon (moon_rel_emb = moon_geo * (1 - f), f = 1/(1+EMRAT))."""
+        moon_p, moon_v = self._interp(Body.MOON, mjd_tt, velocity)
+        if self.kind == "naif":
+            return moon_p, moon_v
+        s = 1.0 - 1.0 / (1.0 + self.emrat)
+        return moon_p * s, (moon_v * s if velocity else None)
+
+    def earth_ephemeris(self, mjd_tt, velocity: bool = True):
+        """True-Earth heliocentric state, equatorial J2000 (AU, AU/day):
+        Earth = EMB - Moon/(1+EMRAT), minus Sun."""
+        emb_p, emb_v = self._interp(Body.EMB, mjd_tt, velocity)
+        sun_p, sun_v = self._sun(mjd_tt, velocity)
+        if Body.EARTH in self.tables:  # NAIF Earth-rel-EMB segment
+            off_p, off_v = self._interp(Body.EARTH, mjd_tt, velocity)
+            pos = emb_p + off_p - sun_p
+            vel = emb_v + off_v - sun_v if velocity else None
+        else:
+            moon_p, moon_v = self._moon_embrel(mjd_tt, velocity)
+            pos = emb_p - moon_p / self.emrat - sun_p
+            vel = emb_v - moon_v / self.emrat - sun_v if velocity else None
+        return pos, vel

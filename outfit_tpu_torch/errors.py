@@ -1,0 +1,47 @@
+# Source: outfit_tpu/errors.py (trimmed to the classes this package raises or names).
+"""Error taxonomy.
+
+Inside the batched tensor code errors are DATA (integer status codes and
+validity masks), so lanes fail independently.  At the host API boundary
+they are the exceptions below, or structured error strings on the
+per-trajectory results built from the result-error class names.
+"""
+
+
+class OutfitError(Exception):
+    """Base class for host-side errors."""
+
+
+# -- raised at the host API boundary -----------------------------------------
+
+
+class InvalidRefSystem(OutfitError, ValueError):
+    """Invalid rotation-axis index / non-converging rotpn chain."""
+
+
+class InvalidIODParameter(OutfitError, ValueError):
+    """IODParams / config validation failure."""
+
+
+class InvalidErrorModel(OutfitError, ValueError):
+    """Unknown astrometric error-model name."""
+
+
+class UnknownObservatory(OutfitError, KeyError):
+    """MPC observatory code absent from the catalog."""
+
+
+# -- per-trajectory result errors (stored as strings, never raised from the
+#    batch pipelines) ----------------------------------------------------------
+
+
+class BizarreOrbit(OutfitError):
+    """Elements left the EquinoctialLimits box; LSQ status code 2."""
+
+
+class DifferentialCorrectionDiverged(OutfitError):
+    """RMS grew past the divergence ratio; LSQ status code 3."""
+
+
+class DifferentialCorrectionFailed(OutfitError):
+    """Normal-equation inversion failed; LSQ status code 4."""

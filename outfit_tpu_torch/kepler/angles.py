@@ -1,0 +1,12 @@
+"""Angle helpers.  Port of ``outfit_tpu/kepler/angles.py``."""
+
+import torch
+
+from outfit_tpu_torch.constants import DPI
+from outfit_tpu_torch.utils.tensors import as_f64
+
+
+def principal_angle(angle):
+    """Wrap an angle to [0, 2pi)."""
+    a = as_f64(angle)
+    return a - torch.floor(a / DPI) * DPI

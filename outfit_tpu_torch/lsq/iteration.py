@@ -1,0 +1,178 @@
+"""One Newton step of differential correction, batched over trajectories.
+
+Port of ``outfit_tpu/lsq/iteration.py`` (two-body, float64):
+
+* observation partials: two-body propagation with analytic 6x3 element
+  Jacobians, chain rule through the ecliptic->equatorial rotation and the
+  position-dependence of the aberration correction,
+* residuals with RA wrapping,
+* the weighted least-squares solve: normal matrix, free-element masking
+  with unit diagonal, Cholesky inversion, normalised RMS, correction norm.
+
+Every contraction is written as broadcast-multiply + sum, the JAX
+package's summation form (``einsum``/``@`` would sum in another order, and
+the Newton loop can then stop one trip apart near its threshold).
+
+Shapes: trajectories T, padded observations N.  Selection codes:
+0 = Active, 1 = Rejected, 2 = ForcedOut.
+"""
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from outfit_tpu_torch.constants import DPI, ROT_ECLMJ2000_TO_EQUMJ2000, VLIGHT_AU
+from outfit_tpu_torch.elements.twobody import propagate_twobody
+from outfit_tpu_torch.elements.types import EquinoctialElements
+from outfit_tpu_torch.utils.linalg import cholesky_inverse6
+
+SEL_ACTIVE = 0
+SEL_REJECTED = 1
+SEL_FORCED_OUT = 2
+
+
+class ObsArrays(NamedTuple):
+    """Padded per-trajectory observation data (T, N)."""
+
+    mjd: torch.Tensor
+    ra: torch.Tensor
+    dec: torch.Tensor
+    sigma_ra: torch.Tensor
+    sigma_dec: torch.Tensor
+    helio_pos: torch.Tensor  # (T, N, 3) observer heliocentric, equatorial J2000
+    valid: torch.Tensor  # (T, N) bool: real observation (not padding)
+
+
+class IterationResult(NamedTuple):
+    corrected: torch.Tensor  # (T, 6) corrected element vector
+    correction_norm: torch.Tensor  # (T,)
+    normalised_rms: torch.Tensor  # (T,)
+    normal_matrix: torch.Tensor  # (T, 6, 6)
+    covariance: torch.Tensor  # (T, 6, 6)
+    inversion_ok: torch.Tensor  # (T,)
+    num_measurements: torch.Tensor  # (T,) int
+    residual_ra: torch.Tensor  # (T, N)
+    residual_dec: torch.Tensor  # (T, N)
+    d_ra: torch.Tensor  # (T, N, 6)
+    d_dec: torch.Tensor  # (T, N, 6)
+    obs_active: torch.Tensor  # (T, N) bool — actually used this iteration
+    kepler: torch.Tensor  # (T, N, 3) (F, sin F, cos F) — warm start
+
+
+def observation_partials(elements_vec, epoch, obs: ObsArrays, kepler_warm=None):
+    """Predicted (RA, Dec) + d/d(elem) for every (trajectory, observation).
+
+    ``elements_vec`` (T, 6) equinoctial in ecliptic J2000; ``epoch`` (T,).
+    Returns (ra, dec, d_ra (T,N,6), d_dec (T,N,6), prop_ok (T,N), kepler).
+    """
+    eq = EquinoctialElements(
+        epoch[:, None], *(elements_vec[:, None, i] for i in range(6))
+    )
+    st = propagate_twobody(
+        eq, epoch[:, None], obs.mjd, compute_derivatives=True,
+        kepler_warm=kepler_warm,
+    )
+    kepler = torch.stack([st.anomaly, st.anomaly_sin, st.anomaly_cos], dim=-1)
+
+    rot = torch.as_tensor(
+        ROT_ECLMJ2000_TO_EQUMJ2000, dtype=st.position.dtype, device=st.position.device
+    )
+    pos = torch.sum(rot * st.position[..., None, :], -1)  # (T, N, 3) equ
+    vel = torch.sum(rot * st.velocity[..., None, :], -1)
+    dpos = torch.sum(rot * st.dpos_delem[..., None, :], -1)  # (T, N, 6, 3)
+
+    rel = pos - obs.helio_pos
+    rel_norm = torch.sqrt(torch.sum(rel * rel, dim=-1))
+    cor = rel - (rel_norm[..., None] / VLIGHT_AU) * vel
+    x, y, z = cor[..., 0], cor[..., 1], cor[..., 2]
+    rho_xy2 = x * x + y * y
+    rho_xy = torch.sqrt(rho_xy2)
+    rho2 = rho_xy2 + z * z
+    ra = torch.remainder(torch.atan2(y, x), DPI)
+    dec = torch.atan2(z, rho_xy)
+
+    grad_ra = torch.stack([-y / rho_xy2, x / rho_xy2, torch.zeros_like(x)], dim=-1)
+    grad_dec = torch.stack(
+        [-z * x / (rho_xy * rho2), -z * y / (rho_xy * rho2), rho_xy / rho2], dim=-1
+    )
+    ab = 1.0 / (rel_norm * VLIGHT_AU)
+    d_ra_d_pos = grad_ra - (torch.sum(grad_ra * vel, dim=-1) * ab)[..., None] * rel
+    d_dec_d_pos = grad_dec - (torch.sum(grad_dec * vel, dim=-1) * ab)[..., None] * rel
+
+    d_ra = torch.sum(dpos * d_ra_d_pos[..., None, :], -1)  # (T, N, 6)
+    d_dec = torch.sum(dpos * d_dec_d_pos[..., None, :], -1)
+
+    prop_ok = st.converged & torch.isfinite(ra) & torch.isfinite(dec)
+    return ra, dec, d_ra, d_dec, prop_ok, kepler
+
+
+def _angular_diff(obs, calc):
+    """(obs - calc) wrapped to (-pi, pi]."""
+    d = torch.remainder(obs - calc, DPI)
+    return torch.where(d > math.pi, d - DPI, d)
+
+
+def single_iteration(
+    elements_vec, epoch, selection, obs: ObsArrays, free_elements, kepler_warm=None
+) -> IterationResult:
+    """One batched Newton step."""
+    ra_c, dec_c, d_ra, d_dec, prop_ok, kepler = observation_partials(
+        elements_vec, epoch, obs, kepler_warm
+    )
+
+    active = (selection == SEL_ACTIVE) & obs.valid & prop_ok
+    # residuals/partials kept for rejected observations too, so the outlier
+    # step evaluates chi^2 against the current orbit
+    usable = obs.valid & prop_ok
+
+    res_ra = torch.where(usable, _angular_diff(obs.ra, ra_c), 0.0)
+    res_dec = torch.where(usable, obs.dec - dec_c, 0.0)
+    g_ra = torch.where(usable[..., None], d_ra, 0.0)
+    g_dec = torch.where(usable[..., None], d_dec, 0.0)
+
+    # only ACTIVE observations contribute to the fit (weights masked)
+    w_ra = torch.where(active, 1.0 / obs.sigma_ra**2, 0.0)
+    w_dec = torch.where(active, 1.0 / obs.sigma_dec**2, 0.0)
+
+    gw_ra = g_ra * w_ra[..., None]
+    gw_dec = g_dec * w_dec[..., None]
+    normal = torch.sum(
+        gw_ra[..., :, None] * g_ra[..., None, :]
+        + gw_dec[..., :, None] * g_dec[..., None, :],
+        dim=1,
+    )
+    rhs = torch.sum(gw_ra * res_ra[..., None] + gw_dec * res_dec[..., None], dim=1)
+    q = torch.sum(w_ra * res_ra**2 + w_dec * res_dec**2, dim=-1)
+    m = (2 * torch.sum(active, dim=-1)).to(torch.int32)
+
+    # free-element mask: zero fixed rows/cols, unit diagonal
+    free = torch.as_tensor(free_elements, dtype=torch.bool, device=normal.device)
+    fmask = free[:, None] & free[None, :]
+    normal = torch.where(fmask, normal, 0.0) + torch.diag(
+        torch.where(free, 0.0, 1.0).to(normal.dtype)
+    )
+    rhs = torch.where(free, rhs, 0.0)
+
+    # unrolled Cholesky inversion (utils.linalg): the normal matrix is SPD
+    # whenever invertible; no QR fallback (see the utils.linalg note)
+    finite = torch.isfinite(normal).all(dim=-1).all(dim=-1)
+    eye = torch.eye(6, dtype=normal.dtype, device=normal.device)
+    normal_safe = torch.where(finite[:, None, None], normal, eye)
+    cov, chol_ok = cholesky_inverse6(normal_safe)
+    inv_ok = finite & chol_ok & torch.isfinite(cov).all(dim=-1).all(dim=-1) & (m >= 1)
+
+    dx = torch.sum(cov * rhs[:, None, :], -1)
+    dx = torch.where(free, dx, 0.0)
+    dx = torch.where(inv_ok[:, None], dx, 0.0)
+
+    ndx = torch.sum(normal * dx[:, None, :], -1)
+    corr_norm = torch.sqrt(torch.clamp(torch.sum(dx * ndx, -1), min=0.0))
+    rms = torch.sqrt(q / torch.clamp(m, min=1))
+    rms = torch.where(m > 0, rms, 0.0)
+
+    corrected = elements_vec + dx
+    return IterationResult(
+        corrected, corr_norm, rms, normal, cov, inv_ok, m,
+        res_ra, res_dec, g_ra, g_dec, active, kepler,
+    )

@@ -1,0 +1,6 @@
+"""Time scales (host-side numpy) and sidereal time (tensors)."""
+
+from outfit_tpu_torch.time.scales import Ut1Provider, frac_date_to_mjd, tt_mjd_to_utc
+from outfit_tpu_torch.time.sidereal import gmst
+
+__all__ = ["Ut1Provider", "frac_date_to_mjd", "gmst", "tt_mjd_to_utc"]

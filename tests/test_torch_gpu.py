@@ -1,0 +1,119 @@
+"""The port's CUDA kernel on the card: each test is marked ``gpu`` and skips
+without a CUDA device.
+
+This file imports no JAX, so it runs on a machine that has none.  There,
+skip tests/conftest.py (it sets up JAX):
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -q -p no:cacheprovider
+
+Bars: the JAX package's own for its Pallas kernel (tests/test_ephem.py:
+atol 1e-15 AU on position, 1e-16 AU/day on velocity); the frame table's
+entries (rotation-matrix entries and the equation of the equinoxes) at 1e-15.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from outfit_tpu_torch import DifferentialCorrectionConfig, ErrorModel, FitResult, JPLEphem, ObsDataset, fit_lsq
+from outfit_tpu_torch.ephem import chebyshev_cuda
+from outfit_tpu_torch.ephem.bodies import Body
+from outfit_tpu_torch.ephem.chebyshev import interpolate_body, interpolate_body_plain
+from outfit_tpu_torch.observer.cache import _frame_interp, _frame_interp_plain, _frame_table, frame_granules
+
+pytestmark = [pytest.mark.gpu, pytest.mark.filterwarnings("ignore:observatory .* SOLVED")]
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+SPAN = (53500.0, 61500.0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def eph():
+    return JPLEphem.analytic(*SPAN)
+
+
+def _epochs(seed, n, lo=SPAN[0] + 50.0, hi=SPAN[1] - 50.0):
+    return np.random.default_rng(seed).uniform(lo, hi, n)
+
+
+@pytest.mark.parametrize("body", [Body.EMB, Body.MOON])
+@pytest.mark.parametrize("n", [37, 4096])
+def test_body_kernel_matches_plain(eph, cuda, body, n):
+    table = eph.to(cuda).tables[body]
+    mjd = torch.as_tensor(_epochs(11, n), device=cuda)
+    before = chebyshev_cuda.launches["body"]
+    p, v = interpolate_body(table, mjd)
+    p0, v0 = interpolate_body_plain(table, mjd)
+    torch.cuda.synchronize()
+    assert chebyshev_cuda.launches["body"] == before + 1
+    np.testing.assert_allclose(p.cpu().numpy(), p0.cpu().numpy(), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(v.cpu().numpy(), v0.cpu().numpy(), rtol=0, atol=1e-16)
+
+
+@pytest.mark.parametrize("n", [37, 4096])
+def test_frame_kernel_matches_plain(cuda, n):
+    mjd_np = _epochs(12, n, 57000.0, 57160.0)
+    n_gran, gran, t0 = frame_granules(mjd_np)
+    coeffs = _frame_table(t0, gran, n_gran, cuda)
+    mjd = torch.as_tensor(mjd_np, device=cuda)
+    before = chebyshev_cuda.launches["frame"]
+    m, e = _frame_interp(coeffs, mjd, t0, gran)
+    m0, e0 = _frame_interp_plain(coeffs, mjd, t0, gran)
+    torch.cuda.synchronize()
+    assert chebyshev_cuda.launches["frame"] == before + 1
+    assert m.shape == (n, 3, 3) and e.shape == (n,)
+    np.testing.assert_allclose(m.cpu().numpy(), m0.cpu().numpy(), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(e.cpu().numpy(), e0.cpu().numpy(), rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("bad", ["float32", "noncontiguous", "too_many_coeffs", "wrong_channels"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
+    coeffs = torch.zeros((4, 3, 14), dtype=torch.float64, device=cuda)
+    mjd = torch.zeros(8, dtype=torch.float64, device=cuda)
+    if bad == "float32":
+        mjd = mjd.float()
+    elif bad == "noncontiguous":
+        mjd = torch.zeros(16, dtype=torch.float64, device=cuda)[::2]
+    elif bad == "too_many_coeffs":
+        coeffs = torch.zeros((4, 3, 40), dtype=torch.float64, device=cuda)
+    else:
+        coeffs = torch.zeros((4, 10, 14), dtype=torch.float64, device=cuda)
+    before = dict(chebyshev_cuda.launches)
+    with pytest.raises((TypeError, ValueError)):
+        chebyshev_cuda.evaluate(coeffs, mjd, 0.0, 1.0, "body")
+    assert chebyshev_cuda.launches == before
+
+
+def test_fit_lsq_on_card_matches_cpu(eph, cuda):
+    """The seeded slice on one fixture: card and CPU give the same status
+    and elements at the repo's float64 lane bar (rtol 1e-6 / atol 1e-9)."""
+    import json
+
+    with open(os.path.join(DATA, "iod_seeds_analytic.json"), encoding="utf-8") as fh:
+        rows = json.load(fh)["33803"]
+    seeds = {
+        tid: FitResult(**{k: (np.array(v) if isinstance(v, list) else v) for k, v in d.items()})
+        for tid, d in rows.items()
+    }
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ds = ObsDataset.from_mpc_80_col(os.path.join(DATA, "33803.obs"))
+        chebyshev_cuda.reset_launch_counts()
+        out[dev] = fit_lsq(
+            ds, eph, config=DifferentialCorrectionConfig(), error_model=ErrorModel.fcct14(),
+            initial_orbits=seeds, device=dev,
+        )["33803"]
+        if dev == "cuda":
+            assert chebyshev_cuda.launches["body"] > 0 and chebyshev_cuda.launches["frame"] > 0
+    a, b = out["cpu"], out["cuda"]
+    assert (a.status, a.n_active_obs, a.fell_back_to_iod) == (b.status, b.n_active_obs, b.fell_back_to_iod)
+    np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9)
