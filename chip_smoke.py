@@ -26,10 +26,30 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    ``outfit_tpu_torch.fit_lsq(..., initial_orbits=seeds, device="cuda")``
    once cold and once warm; the kernel's launch counts of the cold run must
    show both call sites;
-5. card against CPU on the first 64 trajectories of the same dataset.
+5. card against CPU on the first 64 trajectories of the same dataset;
+6. the unseeded path (Gauss IOD, then the correction) at the JAX bench's
+   synthetic size: 8192 trajectories of 12 geocentric observations
+   (``bench.py:406-470``, built with the port's own propagation and
+   apparent positions, sigma 2.4e-6 rad, ``default_rng(0)``), through
+   ``outfit_tpu_torch.fit_lsq(ds, eph, IODParams(n_noise_realizations=3,
+   newton_max_it=20, max_triplets=2), DifferentialCorrectionConfig(
+   divergence_grace_iterations=2, max_newton_iterations=4), seed=7,
+   device="cuda")``: 65,536 IOD lanes of 3 candidates;
+7. the unseeded path on phase 4's real-cadence dataset with the bench's
+   "rich" profile (``IODParams(n_noise_realizations=0, newton_max_it=20,
+   max_triplets=16, max_obs_for_triplets=48)``, default correction):
+   65,536 lanes at up to 129 observations, through the enumerator's
+   downsampling branch.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+Phases 6 and 7 each run one cold and one warm fit (results must agree),
+print the status histogram, the IOD failures by error, the converged
+fraction and the fallbacks to the IOD orbit, require the kernel at both
+sites, count the host syncs of a warm fit, profile a warm fit split into
+its IOD and correction stages, and hold card against CPU on the first 64
+trajectories.
+
+The line before the last is ``{"kernels": [...]}`` (launches summed over
+phases 4, 6 and 7); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -45,6 +65,10 @@ FIXTURES = ("2015AB", "8467", "33803")
 N_TRAJ = 4096
 N_CHECK = 64
 SPAN = (53500.0, 61500.0)
+#: phase 6: the JAX bench's synthetic workload
+N_SYNTH, N_SYNTH_OBS, SYNTH_SIGMA = 8192, 12, 2.4e-6
+#: card against CPU: IOD elements and RMS (LSQ elements at rtol 1e-6 / atol 1e-9)
+IOD_RTOL = 1e-8
 #: the JAX package's bar for its Pallas kernel (tests/test_ephem.py)
 POS_ATOL, VEL_ATOL = 1e-15, 1e-16
 #: frame-table entries: rotation-matrix entries and the equation of the equinoxes
@@ -323,6 +347,276 @@ def phase_cross_check(dev, eph, ds, picks):
     _log(f"card vs CPU, {N_CHECK} trajectories: same statuses; max |d elements| {worst!r}")
 
 
+def synthetic_dataset(n_traj, n_obs, eph, seed=0):
+    """bench.py's synthetic workload (``bench.py:406-470``), built with the
+    port: random bound orbits observed from the geocenter with the same
+    ephemeris the fit uses."""
+    import numpy as np
+    import torch
+
+    from outfit_tpu_torch import ObsDataset
+    from outfit_tpu_torch.constants import ROT_ECLMJ2000_TO_EQUMJ2000
+    from outfit_tpu_torch.elements.twobody import propagate_twobody
+    from outfit_tpu_torch.elements.types import EquinoctialElements, KeplerianElements, keplerian_to_equinoctial
+    from outfit_tpu_torch.iod.scoring import apparent_radec
+    from outfit_tpu_torch.observations.observatories import Observer
+    from outfit_tpu_torch.utils.linalg import rotate3
+
+    rng = np.random.default_rng(seed)
+    T = n_traj
+    kep = KeplerianElements(*(torch.as_tensor(x, dtype=torch.float64) for x in (
+        np.full(T, 57000.0), rng.uniform(1.2, 3.5, T), rng.uniform(0.0, 0.35, T), rng.uniform(0.0, 0.6, T),
+        rng.uniform(0, 2 * np.pi, T), rng.uniform(0, 2 * np.pi, T), rng.uniform(0, 2 * np.pi, T),
+    )))
+    omjd = 57000.0 + np.sort(rng.uniform(0, 40, (T, n_obs)), axis=1)
+    eq = keplerian_to_equinoctial(kep)
+    st = propagate_twobody(
+        EquinoctialElements(*(f[:, None] for f in eq)), 57000.0, torch.as_tensor(omjd), compute_derivatives=False
+    )
+    helio, _ = eph.earth_ephemeris(torch.as_tensor(omjd.ravel()))
+    ra, dec = apparent_radec(
+        rotate3(ROT_ECLMJ2000_TO_EQUMJ2000, st.position), rotate3(ROT_ECLMJ2000_TO_EQUMJ2000, st.velocity),
+        helio.reshape(T, n_obs, 3),
+    )
+    ra = ra.numpy() + rng.normal(0, SYNTH_SIGMA, (T, n_obs))
+    dec = dec.numpy() + rng.normal(0, SYNTH_SIGMA, (T, n_obs))
+
+    ds = ObsDataset()
+    ds.mjd_tt = omjd.ravel()
+    ds.ra = ra.ravel()
+    ds.dec = dec.ravel()
+    ds.ra_error = np.full(T * n_obs, SYNTH_SIGMA)
+    ds.dec_error = np.full(T * n_obs, SYNTH_SIGMA)
+    ds.traj_index = np.repeat(np.arange(T, dtype=np.int64), n_obs)
+    ds.observer_index = np.zeros(T * n_obs, np.int64)
+    ds.traj_ids = [f"S{i:06d}" for i in range(T)]
+    ds.observers = [Observer.geocenter()]
+    ds.mag = np.full(T * n_obs, np.nan)
+    ds.catalog = np.full(T * n_obs, " ", dtype="U1")
+    return ds
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _summary(res):
+    """Status histogram, IOD failures by error, converged fraction and the
+    fallbacks to the IOD orbit of an unseeded fit."""
+    import collections
+
+    import numpy as np
+
+    for tid, r in res.items():
+        if r.ok:
+            assert r.equinoctial.shape == (6,) and np.isfinite(r.equinoctial).all(), tid
+            if not r.fell_back_to_iod:
+                c = r.covariance
+                assert c.shape == (6, 6) and np.isfinite(c).all() and (c == c.T).all(), tid
+                assert (np.diag(c) > 0).all() and np.isfinite(r.normalised_rms), tid
+        else:
+            assert r.error.startswith(("IOD failed: ", "IOD seed not finite")), (tid, r.error)
+    status = collections.Counter(r.status for r in res.values())
+    iod_fail = collections.Counter(
+        r.error[len("IOD failed: "):].split("(")[0] for r in res.values() if not r.ok and r.error.startswith("IOD failed")
+    )
+    converged = sum(r.ok and not r.fell_back_to_iod and r.status == 1 for r in res.values())
+    fell = sum(r.fell_back_to_iod for r in res.values())
+    return dict(status=dict(sorted(status.items())), iod_failures=dict(iod_fail),
+                converged=converged, total=len(res), fallbacks=fell)
+
+
+def _same_fit(a, b):
+    import numpy as np
+
+    if (a.ok, a.error, a.status, a.fell_back_to_iod) != (b.ok, b.error, b.status, b.fell_back_to_iod):
+        return False
+    if (a.iod is None) != (b.iod is None):
+        return False
+    if a.iod is not None and (a.iod.ok, a.iod.rms) != (b.iod.ok, b.iod.rms):
+        return False
+    return a.equinoctial is None and b.equinoctial is None or np.array_equal(a.equinoctial, b.equinoctial)
+
+
+def count_syncs(fn):
+    """Host syncs of ``fn()`` on the card: torch's sync debug mode warns at
+    every synchronising call; count those warnings."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _profiled(fn, dev):
+    """(wall s, device busy s, kernels and copies, top events) of one ``fn()``
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # device activity only: the host operator events of ~10^5 launches would
+    # cost the trace's post-processing tens of seconds
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        wall = time.perf_counter() - t
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return out, wall, busy, sum(e.count for e in events), top
+
+
+#: the IOD stage's parts, timed by :func:`iod_breakdown`: (module, name)
+IOD_PARTS = (
+    ("outfit_tpu_torch.iod.api", "_enum_device"),
+    ("outfit_tpu_torch.iod.api", "draw_noise"),
+    ("outfit_tpu_torch.iod.gauss", "aberth_deg8"),
+    ("outfit_tpu_torch.iod.gauss", "_fg_correction"),
+    ("outfit_tpu_torch.iod.api", "candidates_to_elements"),
+    ("outfit_tpu_torch.iod.api", "rms_orbit_error"),
+)
+
+
+def iod_breakdown(fn, dev):
+    """Wall seconds of the IOD's parts in one ``fn()``: each part is wrapped
+    by a timer that synchronises the card before and after it."""
+    import importlib
+
+    spent = {}
+    saved = []
+    for mod_name, name in IOD_PARTS:
+        mod = importlib.import_module(mod_name)
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+
+        def timed(*a, _orig=orig, _name=name, **k):
+            _sync(dev)
+            t = time.perf_counter()
+            out = _orig(*a, **k)
+            _sync(dev)
+            spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(mod, name, timed)
+    try:
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        total = time.perf_counter() - t
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    parts = ", ".join(f"{k} {v!r} s" for k, v in spent.items())
+    _log(f"  IOD parts (synchronised timers, wall {total!r} s): {parts}; rest {total - sum(spent.values())!r} s")
+
+
+def profile_stages(dev, eph, ds, params, cfg, seed):
+    """One warm unseeded fit as its two stages on a shared observer cache,
+    each profiled and its host syncs counted: the IOD
+    (``fit_full_iod``) and the correction from its orbits."""
+    from outfit_tpu_torch import fit_full_iod, fit_lsq
+    from outfit_tpu_torch.observer.cache import ObserverCache
+
+    cache = ObserverCache.build(ds, eph, device=dev)
+    _sync(dev)
+    stages = {
+        "iod": lambda: fit_full_iod(ds, eph, params, seed, cache=cache, device=dev),
+    }
+    iod, wall, busy, n, top = _profiled(stages["iod"], dev)
+    stages["lsq"] = lambda: fit_lsq(ds, eph, params, cfg, seed, initial_orbits=iod, cache=cache, device=dev)
+    report = {"iod": (wall, busy, n, top)}
+    report["lsq"] = _profiled(stages["lsq"], dev)[1:]
+    iod_breakdown(stages["iod"], dev)
+    for name, (wall, busy, n, top) in report.items():
+        syncs = count_syncs(stages[name])
+        _log(f"  profiled warm {name}: wall {wall!r} s, device busy {busy!r} s ({100.0 * busy / wall:.1f} %), "
+             f"{n} kernels and copies, {syncs} host syncs")
+        for e in top:
+            _log(f"    {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+
+
+def cross_check_unseeded(dev, eph, ds, params, cfg, seed):
+    """Card against CPU on the first trajectories: the same IOD ok/error/
+    kind/corrected and LSQ statuses, IOD elements and RMS at rtol 1e-8, LSQ
+    elements at rtol 1e-6 / atol 1e-9.  A trajectory whose IOD winner
+    changed between two near-tied candidates (RMS within 1e-6) is printed
+    and left out of the element checks; any other difference fails."""
+    import numpy as np
+
+    from outfit_tpu_torch import fit_lsq
+
+    rg = fit_lsq(head(ds, N_CHECK), eph, params, cfg, seed, device=dev)
+    rc = fit_lsq(head(ds, N_CHECK), eph, params, cfg, seed, device="cpu")
+    worst_iod = worst_lsq = 0.0
+    ties = []
+    for tid in rc:
+        a, b = rc[tid], rg[tid]
+        ia, ib = a.iod, b.iod
+        if (ia.ok, ia.error, ia.kind, ia.corrected) != (ib.ok, ib.error, ib.kind, ib.corrected):
+            raise AssertionError(f"{tid}: IOD differs card/CPU: {ia} vs {ib}")
+        if ia.ok:
+            rel = np.abs(ib.equinoctial - ia.equinoctial) / (np.abs(ia.equinoctial) + 1e-12)
+            d = max(float(rel.max()), abs(ib.rms - ia.rms) / ia.rms)
+            if d > IOD_RTOL:
+                if d > 1e-6 and abs(ib.rms - ia.rms) <= 1e-6 * ia.rms:
+                    ties.append(tid)
+                    _log(f"  {tid}: IOD winner differs card/CPU between near-tied candidates "
+                         f"(RMS {ib.rms!r} vs {ia.rms!r}); left out of the element checks")
+                    continue
+                raise AssertionError(f"{tid}: IOD card/CPU deviation {d!r} > {IOD_RTOL}")
+            worst_iod = max(worst_iod, d)
+        if (a.ok, a.status, a.fell_back_to_iod) != (b.ok, b.status, b.fell_back_to_iod):
+            raise AssertionError(f"{tid}: LSQ differs card/CPU: {a.status} vs {b.status}")
+        if a.ok:
+            np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9, err_msg=tid)
+            worst_lsq = max(worst_lsq, float(np.max(np.abs(b.equinoctial - a.equinoctial))))
+    _log(f"  card vs CPU, {len(rc)} trajectories: same IOD and LSQ outcomes; IOD max rel dev {worst_iod!r}, "
+         f"LSQ max |d elements| {worst_lsq!r}; near-tie winner changes {len(ties)}")
+
+
+def phase_unseeded(dev, eph, ds, params, cfg, seed, tag):
+    """The unseeded fit: cold and warm wall, outcome summary, kernel
+    launches, a profiled warm fit split by stage, card against CPU."""
+    from outfit_tpu_torch import fit_lsq
+    from outfit_tpu_torch.ephem import chebyshev_cuda
+
+    _log(f"{tag}: {len(ds.traj_ids)} trajectories, {len(ds.mjd_tt)} observations; {params!r}; {cfg!r}")
+    chebyshev_cuda.reset_launch_counts()
+    t = time.perf_counter()
+    res = fit_lsq(ds, eph, params, cfg, seed, device=dev)
+    _sync(dev)
+    cold = time.perf_counter() - t
+    launches = dict(chebyshev_cuda.launches)
+    t = time.perf_counter()
+    res_w = fit_lsq(ds, eph, params, cfg, seed, device=dev)
+    _sync(dev)
+    warm = time.perf_counter() - t
+    _log(f"{tag} wall: cold {cold!r} s, warm {warm!r} s; kernel launches in the cold run {launches}")
+    if not (launches["body"] > 0 and launches["frame"] > 0):
+        raise AssertionError(f"{tag}: the fitting path did not launch the kernel at both sites: {launches}")
+    assert list(res) == ds.traj_ids, "one result per trajectory, in dataset order"
+    for tid in ds.traj_ids:
+        if not _same_fit(res[tid], res_w[tid]):
+            raise AssertionError(f"{tid}: cold and warm runs differ")
+    summ = _summary(res)
+    _log(f"{tag} outcome: {summ}; converged fraction {summ['converged'] / summ['total']!r}")
+    profile_stages(dev, eph, ds, params, cfg, seed)
+    cross_check_unseeded(dev, eph, ds, params, cfg, seed)
+    return launches
+
+
 def main():
     sys.path.insert(0, HERE)
     dev = phase_device()
@@ -336,6 +630,22 @@ def main():
     times = phase_kernel_check(dev, eph, ds)
     launches, _, _, _ = phase_slice(dev, eph, ds, picks)
     phase_cross_check(dev, eph, ds, picks)
+
+    from outfit_tpu_torch import DifferentialCorrectionConfig, IODParams
+
+    synth = synthetic_dataset(N_SYNTH, N_SYNTH_OBS, eph)
+    lean = IODParams(n_noise_realizations=3, newton_max_it=20, max_triplets=2)
+    cfg = DifferentialCorrectionConfig(divergence_grace_iterations=2, max_newton_iterations=4)
+    rich = IODParams(n_noise_realizations=0, newton_max_it=20, max_triplets=16, max_obs_for_triplets=48)
+    for tag, data, params, config in (
+        ("synthetic 8192 x 12 IOD+LSQ", synth, lean, cfg),
+        ("real-cadence 4096 IOD+LSQ", ds, rich, DifferentialCorrectionConfig()),
+    ):
+        t = time.perf_counter()
+        got = phase_unseeded(dev, eph, data, params, config, 7, tag)
+        _log(f"{tag} phase: {time.perf_counter() - t!r} s")
+        for site in launches:
+            launches[site] += got[site]
 
     kernels = [
         {

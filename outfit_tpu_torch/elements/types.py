@@ -1,11 +1,12 @@
 """Batched orbital element sets and conversions.
 
-Port of the Keplerian and equinoctial half of ``outfit_tpu/elements/types.py``:
-NamedTuples of tensors with a shared leading batch shape.  Element ordering
-in 6-vectors: Keplerian [a, e, i, Omega, omega, M], Equinoctial
-[a, h, k, p, q, lambda].
+Port of ``outfit_tpu/elements/types.py`` without the Jacobians: NamedTuples
+of tensors with a shared leading batch shape.  Element ordering in
+6-vectors: Keplerian [a, e, i, Omega, omega, M], Equinoctial
+[a, h, k, p, q, lambda], Cometary [q, e, i, Omega, omega, nu].
 """
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -36,6 +37,16 @@ class EquinoctialElements(NamedTuple):
 
     def eccentricity(self):
         return torch.sqrt(self.h**2 + self.k**2)
+
+
+class CometaryElements(NamedTuple):
+    reference_epoch: torch.Tensor
+    perihelion_distance: torch.Tensor
+    eccentricity: torch.Tensor
+    inclination: torch.Tensor
+    ascending_node_longitude: torch.Tensor
+    periapsis_argument: torch.Tensor
+    true_anomaly: torch.Tensor
 
 
 class EquinoctialLimits(NamedTuple):
@@ -85,3 +96,32 @@ def equinoctial_to_keplerian(eq: EquinoctialElements) -> KeplerianElements:
     return KeplerianElements(
         eq.reference_epoch, eq.semi_major_axis, ecc, incl, node, argp, mean_anom
     )
+
+
+def cometary_to_keplerian(com: CometaryElements) -> KeplerianElements:
+    """Cometary -> Keplerian; the mean anomaly is the hyperbolic M for e > 1
+    and the elliptic one for e < 1.  Parabolic lanes give a non-finite a;
+    callers gate on that.  Parity: ``cometary_to_keplerian`` (:264-290)."""
+    e = com.eccentricity
+    p_slr = com.perihelion_distance * (1.0 + e)
+    one = e * e - 1.0
+    a = -p_slr / torch.where(torch.abs(one) > 0.0, one, math.nan)
+
+    s = torch.sqrt(torch.abs(e - 1.0) / (e + 1.0))
+    t = torch.tan(0.5 * com.true_anomaly)
+    # hyperbolic branch: H = 2 atanh(s tan(nu/2)), M = e sinh H - H
+    x = torch.clamp(s * t, -1.0 + 1e-15, 1.0 - 1e-15)
+    hh = 2.0 * torch.atanh(x)
+    m_hyp = e * torch.sinh(hh) - hh
+    # elliptic branch: E = 2 atan(s tan(nu/2)), M = E - e sin E
+    ee = 2.0 * torch.atan(s * t)
+    m_ell = ee - e * torch.sin(ee)
+    m = torch.where(e < 1.0, m_ell, m_hyp)
+    return KeplerianElements(
+        com.reference_epoch, a, e, com.inclination,
+        com.ascending_node_longitude, com.periapsis_argument, m,
+    )
+
+
+def cometary_to_equinoctial(com: CometaryElements) -> EquinoctialElements:
+    return keplerian_to_equinoctial(cometary_to_keplerian(com))

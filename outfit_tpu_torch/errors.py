@@ -31,8 +31,30 @@ class UnknownObservatory(OutfitError, KeyError):
     """MPC observatory code absent from the catalog."""
 
 
+class TrajectoryIdNotFound(OutfitError, KeyError):
+    """Requested trajectory id is not in the dataset."""
+
+
 # -- per-trajectory result errors (stored as strings, never raised from the
 #    batch pipelines) ----------------------------------------------------------
+
+
+class NoFeasibleTriplets(OutfitError):
+    def __init__(self, span, n_obs, dt_min, dt_max):
+        super().__init__(
+            f"NoFeasibleTriplets(span={span:.3f}, n_obs={n_obs}, "
+            f"dt_min={dt_min}, dt_max={dt_max})"
+        )
+
+
+class NoViableOrbit(OutfitError):
+    def __init__(self, attempts, cause=None):
+        msg = f"NoViableOrbit(attempts={attempts})"
+        if cause:
+            msg = f"NoViableOrbit(cause={cause}, attempts={attempts})"
+        super().__init__(msg)
+        self.cause = cause
+        self.attempts = attempts
 
 
 class BizarreOrbit(OutfitError):

@@ -1,17 +1,52 @@
-# Source: outfit_tpu/iod/api.py:56-97 (the FitResult dataclass only, as the seed type).
-"""Initial-orbit results.  Gauss IOD itself is not ported yet; the seeded
-least-squares path takes these as its starting orbits."""
+"""User-facing IOD API: Gauss initial orbit determination over a dataset.
+
+Port of ``outfit_tpu/iod/api.py`` (float64 path).  Parity with the
+reference's ``FitIOD`` trait (``obs_dataset_api.rs``) and
+``estimate_best_orbit`` (``trajectory.rs:429-545``):
+
+* prepare: error model -> batch RMS correction -> observer cache,
+* per trajectory: the best ``max_triplets`` spacing-weighted triplets
+  (enumerated on the device), each in ``1 + n_noise_realizations``
+  Monte-Carlo lanes with deterministic per-trajectory noise
+  (:mod:`outfit_tpu_torch.iod.noise`),
+* Gauss candidates per lane, RMS scoring over the triplet's window, the
+  per-lane best candidate (corrected first, then min RMS) and the
+  per-trajectory best lane (min RMS, lowest lane on ties).
+
+Every trajectory's lanes form one dense (trajectory x triplet x
+realization) batch on ``device``; ``IODParams.batch_size`` splits it into
+trajectory-aligned chunks of at most that many lanes.  The JAX package's
+power-of-two buckets, width groups, sync-free screen, fetch packing and
+``mesh`` exist for XLA and its relay and are left out: lanes are
+independent, so none of them changes a result.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
-#: ``FitResult.kind`` of a Keplerian element set (1 = cometary)
-KIND_KEPLERIAN = 0
-
+from outfit_tpu_torch.elements.orb_elem import KIND_KEPLERIAN
+from outfit_tpu_torch.elements.types import (
+    CometaryElements,
+    EquinoctialElements,
+    KeplerianElements,
+    cometary_to_equinoctial,
+    keplerian_to_equinoctial,
+)
+from outfit_tpu_torch.errors import NoFeasibleTriplets, NoViableOrbit
+from outfit_tpu_torch.iod.gauss import GaussTriplets, candidates_to_elements, gauss_candidates
+from outfit_tpu_torch.iod.noise import draw_noise, trajectory_keys
+from outfit_tpu_torch.iod.params import IODParams
+from outfit_tpu_torch.iod.scoring import rms_orbit_error
+from outfit_tpu_torch.iod.triplets import _enum_device
+from outfit_tpu_torch.observations.error_model import ErrorModel
+from outfit_tpu_torch.observer.cache import ObserverCache
+from outfit_tpu_torch.time.scales import Ut1Provider
+from outfit_tpu_torch.utils.tensors import resolve_device
 
 @dataclass(slots=True)
 class FitResult:
@@ -23,6 +58,399 @@ class FitResult:
     rms: float = float("inf")
     corrected: bool = False
     epoch: float = 0.0
-    kind: int = KIND_KEPLERIAN  # 0 = Keplerian, 1 = Cometary
+    kind: int = KIND_KEPLERIAN  # 0 = Keplerian, 1 = Cometary (ccek1 output)
     elements: Optional[np.ndarray] = None  # (6,) element set of ``kind``
     equinoctial: Optional[np.ndarray] = None  # (6,) a,h,k,p,q,lambda (ecliptic)
+
+
+def check_supported(params: IODParams) -> None:
+    """Raise for the IOD configurations this port does not run yet."""
+    if params.precision == "mixed":
+        raise NotImplementedError(
+            "IODParams(precision='mixed') is not ported yet "
+            "(ROADMAP: queue 1, item 4, mixed precision)"
+        )
+
+
+def prepare_dataset(dataset, gap_max: float, error_model: Optional[ErrorModel]) -> None:
+    """Apply ``error_model`` (then the batch RMS correction); datasets
+    without sigmas get FCCT14."""
+    if error_model is not None:
+        dataset.apply_error_model(error_model)
+        dataset.apply_batch_rms_correction(gap_max)
+    if np.isnan(dataset.ra_error).any():
+        dataset.apply_error_model(ErrorModel.fcct14())
+        dataset.apply_batch_rms_correction(gap_max)
+
+
+def _padded_layout(dataset):
+    """``(valid, glob_idx)``, both (T_all, n_max): per trajectory (in
+    ``traj_ids`` order) its observations' dataset rows, epoch-sorted and
+    left-packed, and which slots are real.  One stable (trajectory, epoch)
+    sort."""
+    mjd, ti = dataset.mjd_tt, dataset.traj_index
+    n = len(mjd)
+    grouped = n == 0 or (
+        (ti[1:] >= ti[:-1]).all() and ((mjd[1:] >= mjd[:-1]) | (ti[1:] != ti[:-1])).all()
+    )
+    order = np.arange(n) if grouped else np.lexsort((mjd, ti))
+    ti_sorted = ti[order]
+    counts = np.bincount(ti_sorted, minlength=dataset.n_trajectories)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(n) - starts[ti_sorted]
+    n_max = int(counts.max(initial=1))
+    valid = np.zeros((dataset.n_trajectories, n_max), dtype=bool)
+    valid[ti_sorted, pos] = True
+    glob_idx = np.zeros((dataset.n_trajectories, n_max), np.int64)
+    glob_idx[ti_sorted, pos] = order
+    return valid, glob_idx
+
+
+def base_arrays(dataset, cache: ObserverCache, device):
+    """Dataset-order observation columns on ``device``: (mjd, ra, dec,
+    sigma_ra, sigma_dec, observer heliocentric position)."""
+    f64 = dict(dtype=torch.float64, device=device)
+    cols = (dataset.mjd_tt, dataset.ra, dataset.dec, dataset.ra_error, dataset.dec_error)
+    return tuple(torch.as_tensor(c, **f64) for c in cols) + (cache.helio_pos_pad.to(device),)
+
+
+def _gather_obs_tables(base, glob_g, valid_g):
+    """Padded per-trajectory observation tables (pad slots: 0 / sigma 1)."""
+    mjd_b, ra_b, dec_b, sra_b, sdec_b, helio_b = base
+    return (
+        torch.where(valid_g, mjd_b[glob_g], 0.0),
+        torch.where(valid_g, ra_b[glob_g], 0.0),
+        torch.where(valid_g, dec_b[glob_g], 0.0),
+        torch.where(valid_g, sra_b[glob_g], 1.0),
+        torch.where(valid_g, sdec_b[glob_g], 1.0),
+        torch.where(valid_g[..., None], helio_b[glob_g], 0.0),
+    )
+
+
+def _assemble_lanes(base, g3, z, tk_t, obs_mjd, valid_g, wlo_s, whi_s, params: IODParams):
+    """(triplet x realization) lanes from per-triplet dataset-row indices
+    ``g3`` (S, 3), draws ``z`` (S, n_real, 3, 2), trajectory row per triplet
+    ``tk_t`` (S,) and RMS-window epoch bounds ``wlo_s``/``whi_s`` (S,).
+    Returns (tri, lane_traj, window_mask)."""
+    mjd_b, ra_b, dec_b, sra_b, sdec_b, helio_b = base
+    n_real = params.n_noise_realizations + 1
+    ns = params.noise_scale
+    S = g3.shape[0]
+    L = S * n_real
+    lane_ra = (ra_b[g3][:, None, :] + z[..., 0] * sra_b[g3][:, None, :] * ns).reshape(L, 3)
+    lane_dec = (dec_b[g3][:, None, :] + z[..., 1] * sdec_b[g3][:, None, :] * ns).reshape(L, 3)
+    lane_t = torch.broadcast_to(mjd_b[g3][:, None, :], (S, n_real, 3)).reshape(L, 3)
+    lane_pos = torch.broadcast_to(helio_b[g3][:, None, :, :], (S, n_real, 3, 3)).reshape(L, 3, 3)
+    lane_traj = tk_t[:, None].expand(S, n_real).reshape(L)
+
+    wmask_tri = (obs_mjd[tk_t] >= wlo_s[:, None]) & (obs_mjd[tk_t] <= whi_s[:, None]) & valid_g[tk_t]
+    window_mask = wmask_tri[:, None, :].expand(S, n_real, wmask_tri.shape[1]).reshape(L, -1)
+    return GaussTriplets(lane_ra, lane_dec, lane_t, lane_pos), lane_traj, window_mask
+
+
+def _iod_kernel_dense(base, glob_g, valid_g, counts_g, z_g, trips, ktrips, params: IODParams):
+    """IOD of one chunk as a dense (trajectory x max_triplets) lane grid.
+
+    ``trips`` (Tb, K, 3) / ``ktrips`` (Tb,) come from the triplet
+    enumerator; triplet slots past ``ktrips`` get an empty RMS window and
+    score inf.  ``z_g``: the chunk's draws (Tb, K, n_real, 3, 2)."""
+    K = params.max_triplets
+    Tb = glob_g.shape[0]
+    dev = glob_g.device
+    obs_arrays = _gather_obs_tables(base, glob_g, valid_g)
+    obs_mjd = obs_arrays[0]
+
+    # RMS windows (select_rms_interval, epoch-interval form)
+    te1 = torch.gather(obs_mjd, 1, trips[..., 0])  # (Tb, K)
+    te3 = torch.gather(obs_mjd, 1, trips[..., 2])
+    last = torch.clamp(counts_g - 1, min=0)[:, None]
+    arc = torch.gather(obs_mjd, 1, last)[:, 0] - obs_mjd[:, 0]
+    if params.extf >= 0.0:
+        dt = (te3 - te1) * params.extf
+    else:
+        dt = 10.0 * arc[:, None] * torch.ones_like(te1)
+    if params.dtmax >= 0.0:
+        dt = torch.clamp(dt, min=params.dtmax)
+    k_ok = torch.arange(K, device=dev)[None, :] < ktrips[:, None]
+    wlo = torch.where(k_ok, te1 - dt, torch.inf)
+    whi = torch.where(k_ok, te3 + dt, -torch.inf)
+
+    S = Tb * K
+    g_flat = torch.gather(glob_g, 1, trips.reshape(Tb, K * 3)).reshape(S, 3)
+    tk_t = torch.arange(Tb, device=dev)[:, None].expand(Tb, K).reshape(S)
+    z = z_g.reshape((S,) + z_g.shape[2:])
+    tri, lane_traj, window_mask = _assemble_lanes(
+        base, g_flat, z, tk_t, obs_mjd, valid_g, wlo.reshape(S), whi.reshape(S), params
+    )
+    return _iod_kernel(tri, obs_arrays, lane_traj, window_mask, params)
+
+
+def _lane_select(rms, valid, corrected):
+    """Per-lane candidate: corrected-preferred, then min RMS (first index on
+    ties).  Parity: ``prelim_orbit`` (gauss.rs:1238-1247)."""
+    finite = torch.isfinite(rms)
+    corr_ok = corrected & valid & finite
+    any_corr = torch.any(corr_ok, dim=-1, keepdim=True)
+    eligible = torch.where(any_corr, corr_ok, valid & finite)
+    score = torch.where(eligible, rms, torch.inf)
+    best = torch.argmin(score, dim=-1)
+    return best, torch.gather(score, -1, best[..., None])[..., 0]
+
+
+def _to_equinoctial(kind, el, epoch):
+    """Element-set-aware equinoctial conversion (Keplerian or hyperbolic
+    Cometary) per lane.  Both branches are computed and selected by a
+    ``where`` (the JAX package gates the cometary one behind a ``lax.cond``
+    on a relevant cometary lane existing; Keplerian lanes are bitwise the
+    same either way, cometary lanes within an ulp, and a Python ``if``
+    here would cost a host sync)."""
+    cols = el.unbind(-1)
+    eq_k = keplerian_to_equinoctial(KeplerianElements(epoch, *cols))
+    eq_c = cometary_to_equinoctial(CometaryElements(epoch, *cols))
+    is_kep = kind == KIND_KEPLERIAN
+    return EquinoctialElements(
+        epoch,
+        *(
+            torch.where(is_kep, a, torch.where(torch.isfinite(b), b, 0.0))
+            for a, b in zip(eq_k[1:], eq_c[1:])
+        ),
+    )
+
+
+def _iod_kernel(tri: GaussTriplets, obs_arrays, lane_traj, window_mask, params: IODParams):
+    """Candidates -> elements -> scores -> per-lane best -> per-trajectory
+    best.  Returns per trajectory (rms, kind, elements, equinoctial vector,
+    epoch, corrected)."""
+    cands = gauss_candidates(tri, params)
+    kind, el = candidates_to_elements(cands)  # (L, K), (L, K, 6)
+    eq = _to_equinoctial(kind, el, cands.epoch)
+
+    mjd, ra, dec, sra, sdec, helio = obs_arrays
+    N = mjd.shape[1]
+    S = int(params.selection_subsample)
+    subsampled = 0 < S < N
+    if subsampled:
+        # selection-window subsample (see IODParams): a uniform-with-edges
+        # pick over the contiguous window [wlo, wlo + cnt - 1]
+        wlo = torch.argmax(window_mask.to(torch.uint8), dim=-1)  # (L,)
+        cnt = torch.sum(window_mask, dim=-1)
+        s_ar = torch.arange(S, device=mjd.device)[None, :]
+        j = torch.where(
+            cnt[:, None] <= S, s_ar,
+            torch.div(s_ar * (cnt[:, None] - 1), S - 1, rounding_mode="floor"),
+        )
+        pos = wlo[:, None] + torch.minimum(j, torch.clamp(cnt[:, None] - 1, min=0))
+        pos = torch.clamp(pos, max=N - 1)
+        wmask = (s_ar < cnt[:, None])[:, None, :]
+
+        def sub(x):
+            return torch.gather(x[lane_traj], 1, pos)[:, None, :]
+
+        obs_mjd, obs_ra, obs_dec, obs_sra, obs_sdec = (sub(x) for x in (mjd, ra, dec, sra, sdec))
+        obs_helio = torch.gather(helio[lane_traj], 1, pos[..., None].expand(-1, -1, 3))[:, None]
+    else:
+        obs_mjd, obs_ra, obs_dec, obs_sra, obs_sdec = (
+            x[lane_traj][:, None, :] for x in (mjd, ra, dec, sra, sdec)
+        )
+        obs_helio = helio[lane_traj][:, None, :, :]
+        wmask = window_mask[:, None, :]
+
+    rms = rms_orbit_error(eq, obs_mjd, obs_ra, obs_dec, obs_sra, obs_sdec, obs_helio, wmask)  # (L, K)
+    best_cand, best_rms = _lane_select(rms, cands.valid, cands.corrected)
+
+    # per-trajectory winner: segment argmin over the lane axis, lowest lane
+    # index among equal scores
+    L = best_rms.shape[0]
+    T = mjd.shape[0]
+    dev = best_rms.device
+    seg_min = torch.full((T,), torch.inf, dtype=best_rms.dtype, device=dev).scatter_reduce(
+        0, lane_traj, best_rms, "amin", include_self=True
+    )
+    is_best = torch.isfinite(best_rms) & (best_rms <= seg_min[lane_traj])
+    lane_ids = torch.arange(L, device=dev)
+    sel = torch.full((T,), L, dtype=torch.int64, device=dev).scatter_reduce(
+        0, lane_traj, torch.where(is_best, lane_ids, L), "amin", include_self=True
+    )
+    has = sel < L  # the trajectory produced at least one finite-scored lane
+    sel = torch.clamp(sel, max=L - 1)
+    cand_sel = best_cand[sel]
+
+    def gather(x):
+        return x[sel, cand_sel]
+
+    rms_t = torch.where(has, seg_min, torch.inf)
+    if subsampled:
+        # the reported RMS is always full-window: rescore the winning lane
+        eq_t = EquinoctialElements(*(gather(f) for f in eq))
+        rms_full = rms_orbit_error(eq_t, mjd, ra, dec, sra, sdec, helio, window_mask[sel])
+        rms_t = torch.where(has & torch.isfinite(rms_full), rms_full, torch.inf)
+    eq_vec = torch.stack(list(eq[1:]), dim=-1)
+    return (
+        rms_t,
+        gather(kind),
+        gather(el),
+        gather(eq_vec),
+        gather(cands.epoch),
+        gather(cands.corrected) & has,
+    )
+
+
+def _chunk_spans(n_traj: int, lanes_per_traj: int, batch_size: int):
+    """Trajectory-aligned [start, end) chunks of at most ``batch_size``
+    lanes (at least one trajectory each); one chunk when ``batch_size`` is 0."""
+    if batch_size <= 0:
+        return [(0, n_traj)]
+    per = max(1, batch_size // lanes_per_traj)
+    return [(s, min(s + per, n_traj)) for s in range(0, n_traj, per)]
+
+
+def _fit_full_iod(
+    dataset, ephem, params, seed, ut1, error_model, cache, device, draws=None,
+) -> Dict[str, FitResult]:
+    """:func:`fit_full_iod`, with ``draws`` optionally in place of the
+    port's own noise generator: ``draws(kept_traj_ids)`` returns their
+    (T, max_triplets, n_real, 3, 2) normals (the tests pass the JAX
+    package's draws through it)."""
+    params = params.validated()
+    check_supported(params)
+    device = resolve_device(device)
+    prepare_dataset(dataset, params.gap_max, error_model)
+    if cache is None:
+        cache = ObserverCache.build(dataset, ephem, ut1, device=device)
+
+    results: Dict[str, FitResult] = {}
+    Tall = dataset.n_trajectories
+
+    def infeasible(arc, n_obs):
+        return str(NoFeasibleTriplets(arc, n_obs, params.dt_min, params.dt_max_triplet))
+
+    if len(dataset.mjd_tt) == 0 or Tall == 0:
+        return {tid: FitResult(tid, ok=False, error=infeasible(0.0, 0)) for tid in dataset.traj_ids}
+
+    valid_np, glob_np = _padded_layout(dataset)
+    counts = valid_np.sum(axis=1)
+    epochs_pad = np.where(valid_np, dataset.mjd_tt[glob_np], 0.0)
+    arc = np.where(
+        counts > 0, epochs_pad[np.arange(Tall), np.maximum(counts - 1, 0)] - epochs_pad[:, 0], 0.0
+    )
+
+    # trajectories observed from an unresolvable station are errors, not
+    # silently geocentric fits
+    unk = np.fromiter((o.unknown for o in dataset.observers), bool, count=len(dataset.observers))
+    bad_traj = np.zeros(Tall, bool)
+    if unk.any():
+        bad_obs = unk[dataset.observer_index]
+        bad_traj = np.bincount(dataset.traj_index[bad_obs], minlength=Tall).astype(bool)
+        for t in np.nonzero(bad_traj)[0]:
+            sel = (dataset.traj_index == t) & bad_obs
+            codes = sorted({dataset.observers[i].code or "?" for i in np.unique(dataset.observer_index[sel])})
+            tid = dataset.traj_ids[t]
+            results[tid] = FitResult(tid, ok=False, error=f"UnknownObservatory({', '.join(codes)})")
+
+    # --- triplet enumeration on the device ---------------------------------
+    rows = np.nonzero(~bad_traj)[0]
+    i64 = dict(dtype=torch.int64, device=device)
+    trips, ktrips = _enum_device(
+        torch.as_tensor(epochs_pad[rows], dtype=torch.float64, device=device),
+        torch.as_tensor(counts[rows], **i64),
+        dt_min=params.dt_min,
+        dt_max=params.dt_max_triplet,
+        dtw=params.optimal_interval_time,
+        max_obs=params.max_obs_for_triplets,
+        max_triplets=params.max_triplets,
+    )
+    kt = ktrips.cpu().numpy()
+    for t in rows[kt == 0]:
+        tid = dataset.traj_ids[t]
+        results[tid] = FitResult(tid, ok=False, error=infeasible(arc[t], int(counts[t])))
+    has_trips = kt > 0
+    kept = rows[has_trips]
+    if kept.size:
+        kept_t = torch.as_tensor(np.nonzero(has_trips)[0], **i64)
+        trips, ktrips = trips[kept_t], ktrips[kept_t]
+        kt = kt[has_trips]
+        kept_tids = [dataset.traj_ids[t] for t in kept]
+
+        # Monte-Carlo draws: fixed shape (max_triplets, n_real, 3, 2) per
+        # trajectory, the first ktrips rows used
+        n_real = params.n_noise_realizations + 1
+        if draws is None:
+            keys = torch.as_tensor(trajectory_keys(seed, kept_tids), **i64)
+            z = draw_noise(keys, params.max_triplets, n_real)
+        else:
+            z = torch.as_tensor(np.asarray(draws(kept_tids)), dtype=torch.float64, device=device)
+
+        base = base_arrays(dataset, cache, device)
+        outs = []
+        for s, e in _chunk_spans(kept.size, params.max_triplets * n_real, params.batch_size):
+            w = int(counts[kept[s:e]].max())  # left-packed: the chunk's width
+            out = _iod_kernel_dense(
+                base,
+                torch.as_tensor(glob_np[kept[s:e], :w], **i64),
+                torch.as_tensor(valid_np[kept[s:e], :w], device=device),
+                torch.as_tensor(counts[kept[s:e]], **i64),
+                z[s:e],
+                trips[s:e],
+                ktrips[s:e],
+                params,
+            )
+            outs.append([o.cpu().numpy() for o in out])
+        rms, kind, el, eqv, epoch, corrected = (np.concatenate(c) for c in zip(*outs))
+
+        finite_l = np.isfinite(rms).tolist()
+        rms_l, corr_l, epoch_l, kind_l = rms.tolist(), corrected.tolist(), epoch.tolist(), kind.tolist()
+        for i, tid in enumerate(kept_tids):
+            if not finite_l[i]:
+                results[tid] = FitResult(tid, ok=False, error=str(NoViableOrbit(int(kt[i]) * n_real)))
+                continue
+            results[tid] = FitResult(
+                tid, ok=True, rms=rms_l[i], corrected=bool(corr_l[i]), epoch=epoch_l[i],
+                kind=kind_l[i], elements=el[i], equinoctial=eqv[i],
+            )
+    return {tid: results[tid] for tid in dataset.traj_ids}
+
+
+def fit_full_iod(
+    dataset,
+    ephem,
+    params: IODParams = IODParams(),
+    seed: int = 0,
+    ut1: Optional[Ut1Provider] = None,
+    error_model: Optional[ErrorModel] = None,
+    cache: Optional[ObserverCache] = None,
+    device=None,
+) -> Dict[str, FitResult]:
+    """Batch Gauss IOD over every trajectory of the dataset, in dataset order.
+
+    Parity: ``fit_full_iod`` (obs_dataset_api.rs:145-172).  ``seed`` and the
+    trajectory id fix each trajectory's Monte-Carlo noise, so results do
+    not depend on the dataset's other trajectories, their order, or
+    ``params.batch_size``.  ``device``: where the observer cache and the
+    IOD run; default ``"cuda"`` when a card is present, else ``"cpu"``.
+    """
+    return _fit_full_iod(dataset, ephem, params, seed, ut1, error_model, cache, device)
+
+
+def fit_iod(
+    observations,
+    ephem,
+    params: IODParams = IODParams(),
+    seed: int = 0,
+    ut1=None,
+    traj_id: str = "TRAJ",
+    error_model=None,
+    device=None,
+) -> FitResult:
+    """Single-trajectory IOD (parity: ``FitIOD::fit_iod``,
+    obs_dataset_api.rs:41-127): a list of observation records (``mjd_tt``,
+    ``ra``, ``dec``, ``ra_error``, ``dec_error``, ``observer``), or an
+    ObsDataset and ``traj_id``."""
+    from outfit_tpu_torch.observations.dataset import ObsDataset
+
+    if isinstance(observations, ObsDataset):
+        ds = observations.subset(observations.trajectory_obs_indices(traj_id))
+    else:
+        ds = ObsDataset()
+        for o in observations:
+            ds.push_observation(traj_id, o.mjd_tt, o.ra, o.dec, o.ra_error, o.dec_error, o.observer)
+    return fit_full_iod(ds, ephem, params, seed=seed, ut1=ut1, error_model=error_model, device=device)[traj_id]

@@ -1,14 +1,17 @@
-"""fit_lsq: seeded differential correction over a whole dataset.
+"""fit_lsq: IOD + differential correction over a whole dataset.
 
-Port of the seeded path of ``outfit_tpu/lsq/api.py``
-(``fit_lsq(..., initial_orbits=...)`` -> ``_fit_lsq_seeded``), the
-reference's resume path (diff_cor ``obs_dataset_api.rs:68-71``):
+Port of ``outfit_tpu/lsq/api.py`` (float64, two-body):
 
-* convert each trajectory's seed orbit to the batch, run the batched
-  correction loops on ``device``,
-* fall back to the seed orbit when the correction fails (status != OK),
-* return elements + full 6x6 covariance + 1-sigma uncertainties +
-  normalised RMS per trajectory.
+* without ``initial_orbits``: Gauss IOD (:func:`outfit_tpu_torch.iod.api.
+  fit_full_iod`) on the same observer cache and device, then the seeded
+  correction from its results (the JAX package fuses the two stages on
+  the device; the per-trajectory results are the same),
+* with ``initial_orbits``: the reference's resume path (diff_cor
+  ``obs_dataset_api.rs:68-71``),
+* the batched correction loops run on ``device``; a trajectory whose
+  correction fails (status != OK) falls back to its seed orbit,
+* per trajectory: elements + full 6x6 covariance + 1-sigma uncertainties +
+  normalised RMS.
 
 The JAX package's power-of-two trajectory and observation buckets exist to
 bound its recompiles; PyTorch runs eagerly, so the batch here is exactly
@@ -30,7 +33,15 @@ from outfit_tpu_torch.errors import (
     DifferentialCorrectionDiverged,
     DifferentialCorrectionFailed,
 )
-from outfit_tpu_torch.iod.api import FitResult
+from outfit_tpu_torch.iod.api import (
+    FitResult,
+    _fit_full_iod,
+    _gather_obs_tables,
+    _padded_layout,
+    base_arrays,
+    check_supported as check_iod_supported,
+    prepare_dataset,
+)
 from outfit_tpu_torch.iod.params import IODParams
 from outfit_tpu_torch.lsq.config import DifferentialCorrectionConfig
 from outfit_tpu_torch.lsq.iteration import SEL_ACTIVE, ObsArrays
@@ -38,6 +49,7 @@ from outfit_tpu_torch.lsq.loop import STATUS_OK, check_supported, run_differenti
 from outfit_tpu_torch.observations.error_model import ErrorModel
 from outfit_tpu_torch.observer.cache import ObserverCache
 from outfit_tpu_torch.time.scales import Ut1Provider
+from outfit_tpu_torch.utils.tensors import resolve_device
 
 # kernel status code -> result-error string
 _STATUS_NAMES = {
@@ -88,48 +100,6 @@ class LsqResult:
     iod: Optional[FitResult] = None
 
 
-def _padded_layout(dataset):
-    """``(valid, glob_idx)``, both (T_all, n_max): per trajectory (in
-    ``traj_ids`` order) its observations' dataset rows, epoch-sorted, and
-    which slots are real.  One stable (trajectory, epoch) sort."""
-    mjd, ti = dataset.mjd_tt, dataset.traj_index
-    n = len(mjd)
-    grouped = n == 0 or (
-        (ti[1:] >= ti[:-1]).all() and ((mjd[1:] >= mjd[:-1]) | (ti[1:] != ti[:-1])).all()
-    )
-    order = np.arange(n) if grouped else np.lexsort((mjd, ti))
-    ti_sorted = ti[order]
-    counts = np.bincount(ti_sorted, minlength=dataset.n_trajectories)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    pos = np.arange(n) - starts[ti_sorted]
-    n_max = int(counts.max(initial=1))
-    valid = np.zeros((dataset.n_trajectories, n_max), dtype=bool)
-    valid[ti_sorted, pos] = True
-    glob_idx = np.zeros((dataset.n_trajectories, n_max), np.int64)
-    glob_idx[ti_sorted, pos] = order
-    return valid, glob_idx
-
-
-def _gather_obs(dataset, cache, glob, valid, device):
-    """The per-trajectory observation tables (``api.py:186-198``): padded
-    slots get value 0 and sigma 1."""
-    f64 = dict(dtype=torch.float64, device=device)
-
-    def take(col, fill):
-        return torch.where(valid, torch.as_tensor(col, **f64)[glob], fill)
-
-    helio = cache.helio_pos_pad.to(device)
-    return ObsArrays(
-        take(dataset.mjd_tt, 0.0),
-        take(dataset.ra, 0.0),
-        take(dataset.dec, 0.0),
-        take(dataset.ra_error, 1.0),
-        take(dataset.dec_error, 1.0),
-        torch.where(valid[..., None], helio[glob], 0.0),
-        valid,
-    )
-
-
 def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device):
     """Differential correction from an explicit per-trajectory seed map."""
     results: Dict[str, LsqResult] = {}
@@ -157,7 +127,8 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device):
     g_valid = valid_all[rsel]
 
     valid = torch.as_tensor(g_valid, device=device)
-    obs = _gather_obs(dataset, cache, torch.as_tensor(glob_all[rsel], device=device), valid, device)
+    glob = torch.as_tensor(glob_all[rsel], device=device)
+    obs = ObsArrays(*_gather_obs_tables(base_arrays(dataset, cache, device), glob, valid), valid)
     f64 = dict(dtype=torch.float64, device=device)
     out = run_differential_correction(
         torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config
@@ -214,41 +185,49 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device):
     return results
 
 
+def _fit_lsq(
+    dataset, ephem, iod_params, config, seed, ut1, error_model, initial_orbits, cache, device,
+    draws=None,
+) -> Dict[str, LsqResult]:
+    """:func:`fit_lsq` with an optional IOD noise source (``draws``, see
+    :func:`outfit_tpu_torch.iod.api._fit_full_iod`)."""
+    check_supported(config)
+    if initial_orbits is None:
+        check_iod_supported(iod_params)
+    device = resolve_device(device)
+    prepare_dataset(dataset, iod_params.gap_max, error_model)
+    if cache is None:
+        cache = ObserverCache.build(dataset, ephem, ut1, device=device)
+    if initial_orbits is not None:
+        return _fit_lsq_seeded(dataset, config, initial_orbits, cache, device)
+    iod = _fit_full_iod(dataset, ephem, iod_params, seed, ut1, None, cache, device, draws)
+    res = _fit_lsq_seeded(dataset, config, iod, cache, device)
+    return {tid: res[tid] for tid in dataset.traj_ids}
+
+
 def fit_lsq(
     dataset,
     ephem,
     iod_params: IODParams = IODParams(),
     config: DifferentialCorrectionConfig = DifferentialCorrectionConfig(),
+    seed: int = 0,
     ut1: Optional[Ut1Provider] = None,
     error_model: Optional[ErrorModel] = None,
     initial_orbits: Optional[Dict[str, FitResult]] = None,
     cache: Optional[ObserverCache] = None,
     device=None,
 ) -> Dict[str, LsqResult]:
-    """Differential correction for every trajectory of the dataset, from
-    the seed orbits in ``initial_orbits`` (parity: diff_cor
-    obs_dataset_api.rs:68-71).
+    """IOD + differential correction for every trajectory of the dataset.
 
-    ``device``: where the observer cache and the correction run; default
-    ``"cuda"`` when a card is present, else ``"cpu"``.  ``iod_params``
-    gives ``gap_max`` for the batch RMS correction.  Without ``initial_orbits`` the Gauss IOD stage would run, which is not
-    ported yet: that raises ``NotImplementedError``.
+    Without ``initial_orbits``, Gauss IOD (``iod_params``, ``seed``) seeds
+    the correction and the results come in dataset order; with it, the
+    correction resumes from those orbits (parity: diff_cor
+    obs_dataset_api.rs:68-71).  ``iod_params.gap_max`` drives the batch RMS
+    correction either way.  ``device``: where the observer cache, IOD and
+    correction run; default ``"cuda"`` when a card is present, else
+    ``"cpu"``.  The parameters are the JAX package's, in its order, with
+    ``device`` in place of ``mesh`` (and no ``as_table``).
     """
-    if initial_orbits is None:
-        raise NotImplementedError(
-            "fit_lsq without initial_orbits runs Gauss IOD, which is not ported "
-            "yet (ROADMAP: port queue, Gauss IOD and unseeded fit_lsq)"
-        )
-    check_supported(config)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
-    if error_model is not None:
-        dataset.apply_error_model(error_model)
-        dataset.apply_batch_rms_correction(iod_params.gap_max)
-    if np.isnan(dataset.ra_error).any():
-        dataset.apply_error_model(ErrorModel.fcct14())
-        dataset.apply_batch_rms_correction(iod_params.gap_max)
-    if cache is None:
-        cache = ObserverCache.build(dataset, ephem, ut1, device=device)
-    return _fit_lsq_seeded(dataset, config, initial_orbits, cache, device)
+    return _fit_lsq(
+        dataset, ephem, iod_params, config, seed, ut1, error_model, initial_orbits, cache, device
+    )

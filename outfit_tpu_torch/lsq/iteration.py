@@ -26,6 +26,7 @@ from outfit_tpu_torch.constants import DPI, ROT_ECLMJ2000_TO_EQUMJ2000, VLIGHT_A
 from outfit_tpu_torch.elements.twobody import propagate_twobody
 from outfit_tpu_torch.elements.types import EquinoctialElements
 from outfit_tpu_torch.utils.linalg import cholesky_inverse6
+from outfit_tpu_torch.utils.tensors import device_constant
 
 SEL_ACTIVE = 0
 SEL_REJECTED = 1
@@ -75,9 +76,7 @@ def observation_partials(elements_vec, epoch, obs: ObsArrays, kepler_warm=None):
     )
     kepler = torch.stack([st.anomaly, st.anomaly_sin, st.anomaly_cos], dim=-1)
 
-    rot = torch.as_tensor(
-        ROT_ECLMJ2000_TO_EQUMJ2000, dtype=st.position.dtype, device=st.position.device
-    )
+    rot = device_constant(ROT_ECLMJ2000_TO_EQUMJ2000, st.position.device, st.position.dtype)
     pos = torch.sum(rot * st.position[..., None, :], -1)  # (T, N, 3) equ
     vel = torch.sum(rot * st.velocity[..., None, :], -1)
     dpos = torch.sum(rot * st.dpos_delem[..., None, :], -1)  # (T, N, 6, 3)
@@ -147,7 +146,7 @@ def single_iteration(
     m = (2 * torch.sum(active, dim=-1)).to(torch.int32)
 
     # free-element mask: zero fixed rows/cols, unit diagonal
-    free = torch.as_tensor(free_elements, dtype=torch.bool, device=normal.device)
+    free = torch.as_tensor(free_elements, dtype=torch.bool, device=normal.device)  # no copy for a tensor
     fmask = free[:, None] & free[None, :]
     normal = torch.where(fmask, normal, 0.0) + torch.diag(
         torch.where(free, 0.0, 1.0).to(normal.dtype)

@@ -73,7 +73,7 @@ def check_supported(cfg: DifferentialCorrectionConfig) -> None:
     """Raise for the configurations this port does not run yet."""
     if cfg.precision == "mixed":
         raise NotImplementedError(
-            "precision='mixed' is not ported yet (ROADMAP: port queue, mixed modes)"
+            "precision='mixed' is not ported yet (ROADMAP: queue 1, item 4, mixed precision)"
         )
     if cfg.precision != "f64":
         raise ValueError(
@@ -81,7 +81,7 @@ def check_supported(cfg: DifferentialCorrectionConfig) -> None:
         )
     if cfg.propagator.nbody:
         raise NotImplementedError(
-            "the N-body propagator is not ported yet (ROADMAP: port queue, N-body)"
+            "the N-body propagator is not ported yet (ROADMAP: queue 1, item 8, N-body)"
         )
 
 
@@ -112,7 +112,8 @@ def run_differential_correction(
     f64 = dict(dtype=torch.float64, device=dev)
     if selection0 is None:
         selection0 = torch.where(obs.valid, SEL_ACTIVE, SEL_FORCED_OUT).to(torch.int32)
-    free = tuple(bool(f) for f in cfg.free_elements)
+    # uploaded once: a per-iteration upload would wait for the card's queue
+    free = torch.as_tensor([bool(f) for f in cfg.free_elements], device=dev)
     limits = cfg.orbital_limits
 
     st = _St(

@@ -1,5 +1,5 @@
 # Source: outfit_tpu/observations/dataset.py (trimmed to MPC 80-column ingestion,
-# error models and the batch RMS correction).
+# push_observation, subset, error models and the batch RMS correction).
 """ObsDataset: the observation container consumed by the fitting pipeline.
 
 Struct-of-arrays (numpy, host-side) with integer indices into
@@ -95,6 +95,55 @@ class ObsDataset:
             ds.catalog[i] = getattr(r, "catalog", " ") or " "
         return ds
 
+    def push_observation(
+        self, traj_id: str, mjd_tt: float, ra: float, dec: float,
+        ra_error: float, dec_error: float, observer: Observer,
+        catalog: str = " ",
+    ) -> None:
+        """Append one observation (angles/sigmas in radians)."""
+        if traj_id in self.traj_ids:
+            ti = self.traj_ids.index(traj_id)
+        else:
+            ti = len(self.traj_ids)
+            self.traj_ids.append(traj_id)
+        key = observer.code or observer.name or f"obs{len(self.observers)}"
+        oi = None
+        for j, ob in enumerate(self.observers):
+            if (ob.code or ob.name) == key and ob == observer:
+                oi = j
+                break
+        if oi is None:
+            oi = len(self.observers)
+            self.observers.append(observer)
+        self.mjd_tt = np.append(self.mjd_tt, mjd_tt)
+        self.ra = np.append(self.ra, ra)
+        self.dec = np.append(self.dec, dec)
+        self.ra_error = np.append(self.ra_error, ra_error)
+        self.dec_error = np.append(self.dec_error, dec_error)
+        self.traj_index = np.append(self.traj_index, ti)
+        self.observer_index = np.append(self.observer_index, oi)
+        self.mag = np.append(self.mag, np.nan)
+        self.catalog = np.append(self.catalog, catalog or " ")
+
+    def subset(self, indices) -> "ObsDataset":
+        """New dataset holding only the given observation rows (all columns)."""
+        idx = np.asarray(indices, dtype=np.int64)
+        kept_traj = sorted(set(int(t) for t in self.traj_index[idx]))
+        tmap = {t: i for i, t in enumerate(kept_traj)}
+        return ObsDataset(
+            mjd_tt=self.mjd_tt[idx].copy(),
+            ra=self.ra[idx].copy(),
+            dec=self.dec[idx].copy(),
+            ra_error=self.ra_error[idx].copy(),
+            dec_error=self.dec_error[idx].copy(),
+            traj_index=np.array([tmap[int(t)] for t in self.traj_index[idx]], dtype=np.int64),
+            observer_index=self.observer_index[idx].copy(),
+            traj_ids=[self.traj_ids[t] for t in kept_traj],
+            observers=list(self.observers),
+            mag=self.mag[idx].copy() if len(self.mag) == len(self) else self.mag,
+            catalog=self.catalog[idx].copy() if len(self.catalog) == len(self) else self.catalog,
+        )
+
     # -- error models ---------------------------------------------------------
 
     def apply_error_model(self, model: ErrorModel) -> "ObsDataset":
@@ -127,3 +176,14 @@ class ObsDataset:
 
     def iter_traj_id(self):
         return iter(self.traj_ids)
+
+    def trajectory_obs_indices(self, traj_id: str) -> np.ndarray:
+        """Observation indices of one trajectory, sorted by epoch."""
+        try:
+            ti = self.traj_ids.index(traj_id)
+        except ValueError:
+            from outfit_tpu_torch.errors import TrajectoryIdNotFound
+
+            raise TrajectoryIdNotFound(traj_id) from None
+        idx = np.nonzero(self.traj_index == ti)[0]
+        return idx[np.argsort(self.mjd_tt[idx], kind="stable")]

@@ -14,6 +14,8 @@ inversion failure falls back to the IOD orbit instead.
 
 import torch
 
+from outfit_tpu_torch.utils.tensors import device_constant
+
 _N = 6
 
 
@@ -82,3 +84,26 @@ def matmul_small(a, b):
     """(..., i, k) @ (..., k, j) -> (..., i, j) via multiply + reduce, the
     JAX package's summation form (``@`` would sum in another order)."""
     return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+
+
+def matvec_small(m, v):
+    """(..., i, j) @ (..., j) -> (..., i) via multiply + reduce."""
+    return torch.sum(m * v[..., None, :], -1)
+
+
+def rotate3(rot, v):
+    """Apply a (3, 3) rotation (a module-level numpy constant) to (..., 3)
+    vectors."""
+    return torch.sum(device_constant(rot, v.device, v.dtype) * v[..., None, :], -1)
+
+
+def cross3(a, b):
+    """Cross product over the last axis, in ``jnp.cross``'s term order."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def norm3(v):
+    """Euclidean norm over the last axis, as ``sqrt(sum(v * v))``."""
+    return torch.sqrt(torch.sum(v * v, dim=-1))

@@ -9,6 +9,8 @@ skip tests/conftest.py (it sets up JAX):
 Bars: the JAX package's own for its Pallas kernel (tests/test_ephem.py:
 atol 1e-15 AU on position, 1e-16 AU/day on velocity); the frame table's
 entries (rotation-matrix entries and the equation of the equinoxes) at 1e-15.
+The IOD on the card against the CPU: the noise draws and triplet indices
+identical, outcomes and flags identical, elements and RMS at rtol 1e-8.
 """
 
 import os
@@ -17,16 +19,28 @@ import numpy as np
 import pytest
 import torch
 
-from outfit_tpu_torch import DifferentialCorrectionConfig, ErrorModel, FitResult, JPLEphem, ObsDataset, fit_lsq
+from outfit_tpu_torch import (
+    DifferentialCorrectionConfig,
+    ErrorModel,
+    FitResult,
+    IODParams,
+    JPLEphem,
+    ObsDataset,
+    fit_full_iod,
+    fit_lsq,
+)
 from outfit_tpu_torch.ephem import chebyshev_cuda
 from outfit_tpu_torch.ephem.bodies import Body
 from outfit_tpu_torch.ephem.chebyshev import interpolate_body, interpolate_body_plain
+from outfit_tpu_torch.iod.noise import draw_noise, trajectory_keys
+from outfit_tpu_torch.iod.triplets import _enum_device
 from outfit_tpu_torch.observer.cache import _frame_interp, _frame_interp_plain, _frame_table, frame_granules
 
 pytestmark = [pytest.mark.gpu, pytest.mark.filterwarnings("ignore:observatory .* SOLVED")]
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 SPAN = (53500.0, 61500.0)
+FIXTURES = ("2015AB", "8467", "33803", "K25D50B")
 
 
 @pytest.fixture
@@ -117,3 +131,58 @@ def test_fit_lsq_on_card_matches_cpu(eph, cuda):
     a, b = out["cpu"], out["cuda"]
     assert (a.status, a.n_active_obs, a.fell_back_to_iod) == (b.status, b.n_active_obs, b.fell_back_to_iod)
     np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9)
+
+
+def test_noise_draws_same_on_card_and_cpu(cuda):
+    keys = trajectory_keys(42, [f"T{i}" for i in range(300)] + ["8467", "K09R05F"])
+    z_cpu = draw_noise(torch.as_tensor(keys), 10, 21)
+    z_gpu = draw_noise(torch.as_tensor(keys, device=cuda), 10, 21)
+    torch.testing.assert_close(z_gpu.cpu(), z_cpu, rtol=0, atol=0)
+
+
+def test_enum_device_same_on_card_and_cpu(cuda):
+    rng = np.random.default_rng(5)
+    counts = rng.integers(0, 90, 64)
+    epochs = np.zeros((64, int(counts.max())))
+    for t, c in enumerate(counts):
+        epochs[t, :c] = np.sort(np.round(rng.uniform(0, 120, c), 1))  # ties and zero gaps
+    kw = dict(dt_min=0.03, dt_max=150.0, dtw=20.0, max_obs=48, max_triplets=16)
+    tc, kc = _enum_device(torch.as_tensor(epochs), torch.as_tensor(counts), **kw)
+    tg, kg = _enum_device(torch.as_tensor(epochs, device=cuda), torch.as_tensor(counts, device=cuda), **kw)
+    np.testing.assert_array_equal(kg.cpu().numpy(), kc.numpy())
+    np.testing.assert_array_equal(tg.cpu().numpy(), tc.numpy())
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_fit_full_iod_on_card_matches_cpu(eph, cuda, name):
+    """The stored-seed configuration (default IODParams, seed 42, FCCT14)
+    with the port's own draws: card and CPU agree."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ds = ObsDataset.from_mpc_80_col(os.path.join(DATA, f"{name}.obs"))
+        chebyshev_cuda.reset_launch_counts()
+        out[dev] = fit_full_iod(ds, eph, IODParams(), 42, error_model=ErrorModel.fcct14(), device=dev)
+        if dev == "cuda":
+            assert chebyshev_cuda.launches["body"] > 0 and chebyshev_cuda.launches["frame"] > 0
+    for tid, a in out["cpu"].items():
+        b = out["cuda"][tid]
+        assert (a.ok, a.error, a.kind, a.corrected) == (b.ok, b.error, b.kind, b.corrected), tid
+        assert a.ok
+        np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(b.rms, a.rms, rtol=1e-8)
+        np.testing.assert_allclose(b.epoch, a.epoch, rtol=1e-14)
+
+
+def test_unseeded_fit_lsq_on_card_matches_cpu(eph, cuda):
+    params = IODParams(n_noise_realizations=3, max_triplets=4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ds = ObsDataset.from_mpc_80_col_files([os.path.join(DATA, f"{n}.obs") for n in FIXTURES])
+        out[dev] = fit_lsq(ds, eph, params, DifferentialCorrectionConfig(), 42,
+                           error_model=ErrorModel.fcct14(), device=dev)
+    assert list(out["cuda"]) == list(out["cpu"])
+    for tid, a in out["cpu"].items():
+        b = out["cuda"][tid]
+        assert (a.ok, a.status, a.fell_back_to_iod, a.n_active_obs) == (b.ok, b.status, b.fell_back_to_iod, b.n_active_obs)
+        np.testing.assert_allclose(b.iod.equinoctial, a.iod.equinoctial, rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9)

@@ -7,8 +7,9 @@
   (the repo's float64 lane bar, test_lsq.py::TestLsqBatchIsolation).
 * Batch isolation of the port itself: a lane alone and in the batch agree
   bitwise.
-* The slice: ``fit_lsq(..., initial_orbits=seeds)`` of both packages on
-  the four MPC fixtures, seeded from tests/data/iod_seeds_analytic.json.
+* The seeded path: ``fit_lsq(..., initial_orbits=seeds)`` of both packages
+  on the four MPC fixtures, seeded from tests/data/iod_seeds_analytic.json
+  (the unseeded path is in tests/test_torch_iod.py).
 """
 
 import json
@@ -42,6 +43,7 @@ from outfit_tpu_torch import (
     DifferentialCorrectionConfig,
     ErrorModel,
     FitResult,
+    IODParams,
     JPLEphem,
     ObsDataset,
     fit_lsq,
@@ -247,17 +249,18 @@ def test_seed_rows_without_a_usable_seed_match_jax(jeph, teph, case):
     assert (b.equinoctial is None) == (a.equinoctial is None)
 
 
-@pytest.mark.parametrize("what", ["unseeded", "mixed", "nbody"])
+@pytest.mark.parametrize("what", ["iod_mixed", "mixed", "nbody"])
 def test_unported_paths_raise(teph, what):
     ds = ObsDataset.from_mpc_80_col(os.path.join(DATA, "8467.obs"))
-    seeds = None if what == "unseeded" else _seeds("8467", FitResult)
+    seeds = None if what == "iod_mixed" else _seeds("8467", FitResult)
+    iod_params = IODParams(precision="mixed") if what == "iod_mixed" else IODParams()
     cfg = {
-        "unseeded": DifferentialCorrectionConfig(),
+        "iod_mixed": DifferentialCorrectionConfig(),
         "mixed": DifferentialCorrectionConfig(precision="mixed"),
         "nbody": DifferentialCorrectionConfig(propagator=PropagatorKind.n_body()),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_lsq(ds, teph, config=cfg, initial_orbits=seeds, device="cpu")
+        fit_lsq(ds, teph, iod_params, cfg, initial_orbits=seeds, device="cpu")
 
 
 def test_port_imports_without_jax():
@@ -269,7 +272,9 @@ def test_port_imports_without_jax():
         for d, _, files in os.walk(pkg) for f in files
         if f.endswith(".py") and f != "__init__.py"
     )
-    assert "outfit_tpu_torch.lsq.api" in mods and "outfit_tpu_torch.ephem.chebyshev_cuda" in mods
+    for m in ("lsq.api", "ephem.chebyshev_cuda", "iod.api", "iod.gauss", "iod.roots", "iod.scoring",
+              "iod.triplets", "iod.noise", "kepler.stumpff", "kepler.universal", "elements.orb_elem"):
+        assert "outfit_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         "import outfit_tpu_torch\n"
