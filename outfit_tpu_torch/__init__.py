@@ -1,34 +1,85 @@
 """outfit_tpu_torch: the PyTorch/CUDA port of outfit_tpu.
 
-This slice covers the main path, ``fit_lsq(dataset, ephem, IODParams(),
-config, seed=..., device=...)``: observation ingestion, the observer cache
-(with the Chebyshev table evaluation as a hand-written CUDA kernel for
-Hopper, ``csrc/chebyshev.cu``), Gauss initial orbit determination
-(``fit_full_iod``, ``fit_iod``: triplet enumeration, Aberth roots, the f-g
-correction over the universal Kepler solver, RMS scoring), and the
-differential correction (two-body propagation with analytic partials, the
-Newton / outlier-rejection loops, covariance extraction), seeded by the IOD
-or by ``initial_orbits``.  Every tensor is float64.  The package imports
-``torch`` and never ``jax``.
+This slice covers the main path in its production form,
+``fit_lsq(dataset, ephem, IODParams(), config, seed=..., device=...)``:
+observation ingestion, the observer cache (with the Chebyshev table
+evaluation as a hand-written CUDA kernel for Hopper, ``csrc/chebyshev.cu``),
+Gauss initial orbit determination (``fit_full_iod``, ``fit_iod``: triplet
+enumeration, Aberth roots, the f-g correction over the universal Kepler
+solver, RMS scoring), and the differential correction (two-body propagation
+with analytic partials, the Newton / outlier-rejection loops, covariance
+extraction), seeded by the IOD or by ``initial_orbits``; in float64 or, with
+``precision="mixed"``, with float32 iterative stages and float64 polish;
+results as dicts or as an ``LsqTable``; and the service modes
+(``fit_lsq_stream``, ``fit_lsq_escalating``, ``fit_lsq_stream_escalating``,
+``fit_full_iod_stream``).  The package imports ``torch`` and never ``jax``.
 """
 
+from outfit_tpu_torch.elements.types import (
+    CometaryElements,
+    EquinoctialElements,
+    EquinoctialLimits,
+    KeplerianElements,
+    OrbitalElements,
+)
 from outfit_tpu_torch.ephem.api import JPLEphem
-from outfit_tpu_torch.iod.api import FitResult, fit_full_iod, fit_iod
+from outfit_tpu_torch.ephem.bodies import Body
+from outfit_tpu_torch.errors import OutfitError
+from outfit_tpu_torch.iod.api import (
+    IODRMS,
+    FitResult,
+    FullOrbitResult,
+    GaussResult,
+    fit_full_iod,
+    fit_full_iod_parallel,
+    fit_full_iod_stream,
+    fit_iod,
+)
 from outfit_tpu_torch.iod.params import IODParams
-from outfit_tpu_torch.lsq.api import LsqResult, fit_lsq
+from outfit_tpu_torch.lsq.api import (
+    DifferentialCorrectionOutput,
+    LsqResult,
+    fit_lsq,
+    fit_lsq_escalating,
+    fit_lsq_stream,
+    fit_lsq_stream_escalating,
+)
 from outfit_tpu_torch.lsq.config import DifferentialCorrectionConfig
+from outfit_tpu_torch.lsq.table import LsqTable
 from outfit_tpu_torch.observations.dataset import ObsDataset
 from outfit_tpu_torch.observations.error_model import ErrorModel
+from outfit_tpu_torch.observations.observatories import Observer, get_observatory
+from outfit_tpu_torch.time.scales import Ut1Provider
 
 __all__ = [
+    "Body",
+    "CometaryElements",
     "DifferentialCorrectionConfig",
+    "DifferentialCorrectionOutput",
+    "EquinoctialElements",
+    "EquinoctialLimits",
     "ErrorModel",
     "FitResult",
+    "FullOrbitResult",
+    "GaussResult",
     "IODParams",
+    "IODRMS",
     "JPLEphem",
+    "KeplerianElements",
     "LsqResult",
+    "LsqTable",
     "ObsDataset",
+    "Observer",
+    "OrbitalElements",
+    "OutfitError",
+    "Ut1Provider",
     "fit_full_iod",
+    "fit_full_iod_parallel",
+    "fit_full_iod_stream",
     "fit_iod",
     "fit_lsq",
+    "fit_lsq_escalating",
+    "fit_lsq_stream",
+    "fit_lsq_stream_escalating",
+    "get_observatory",
 ]

@@ -17,7 +17,7 @@ import torch
 from outfit_tpu_torch.constants import GAUSS_GRAV_SQUARED
 from outfit_tpu_torch.kepler.angles import principal_angle as _wrap
 from outfit_tpu_torch.utils.linalg import cross3, norm3
-from outfit_tpu_torch.utils.tensors import as_f64
+from outfit_tpu_torch.utils.tensors import as_floats
 
 _EPS = torch.finfo(torch.float64).eps
 
@@ -33,9 +33,8 @@ def eccentricity_control(position, velocity, peri_max, ecc_max):
     """(accepted, eccentricity, perihelion, energy) for batched states.
 
     Parity: ``src/orb_elem.rs:257-301``; degenerate angular momentum lanes
-    are not accepted."""
-    position = as_f64(position)
-    velocity = as_f64(velocity, position.device)
+    are not accepted.  Runs in the inputs' precision."""
+    position, velocity = as_floats(position, velocity)
     mu = GAUSS_GRAV_SQUARED
 
     v2 = torch.sum(velocity * velocity, dim=-1)
@@ -63,9 +62,8 @@ class StateElements(NamedTuple):
 
 def ccek1(position, velocity):
     """Cartesian heliocentric state (ecliptic J2000) -> orbital elements.
-    Parity: ``src/orb_elem.rs:58-226``."""
-    position = as_f64(position)
-    velocity = as_f64(velocity, position.device)
+    Parity: ``src/orb_elem.rs:58-226``.  Runs in the inputs' precision."""
+    position, velocity = as_floats(position, velocity)
     mu = GAUSS_GRAV_SQUARED
 
     # 1) angular momentum and orbital plane

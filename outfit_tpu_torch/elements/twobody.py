@@ -21,7 +21,7 @@ import torch
 from outfit_tpu_torch.constants import DPI, GAUSS_GRAV_SQUARED
 from outfit_tpu_torch.elements.types import EquinoctialElements
 from outfit_tpu_torch.kepler.angles import principal_angle
-from outfit_tpu_torch.utils.tensors import as_f64
+from outfit_tpu_torch.utils.tensors import as_float
 
 _EPS = torch.finfo(torch.float64).eps
 
@@ -128,18 +128,24 @@ def propagate_twobody(
     compute_derivatives: bool = True,
     mu: float = GAUSS_GRAV_SQUARED,
     kepler_warm=None,
+    kepler_solution=None,
 ) -> TwoBodyResult:
     """Propagate equinoctial elements to t1 (Cartesian state + partials).
 
     ``kepler_warm``: optional (F, sin F, cos F) warm start for the Kepler
     solve (the differential-correction loop passes the previous iteration's).
+    ``kepler_solution``: optional (F, sin F, cos F) that skips the solve (the
+    mixed-precision Jacobian pass reuses the float64 solution).
+
+    The elements' dtype is the working precision; the epoch difference is
+    taken at the epochs' own precision (float64 MJDs) and then cast to it.
     """
     a = eq.semi_major_axis
     h, k, p, q = eq.h, eq.k, eq.p, eq.q
-    t1 = as_f64(t1, a.device)
+    t1 = as_float(t1, a.device)
     dt = torch.broadcast_to(
-        t1 - as_f64(t0, a.device), torch.broadcast_shapes(a.shape, t1.shape)
-    )
+        t1 - as_float(t0, a.device), torch.broadcast_shapes(a.shape, t1.shape)
+    ).to(a.dtype)
 
     n = torch.sqrt(mu / a**3)
     lam1 = eq.mean_longitude + n * dt
@@ -149,7 +155,11 @@ def propagate_twobody(
     lam1 = principal_angle(lam1)
     lam1 = torch.where(lam1 < varpi, lam1 + DPI, lam1)
 
-    F, sF, cF, converged = solve_generalized_kepler(eq, lam1, warm=kepler_warm)
+    if kepler_solution is not None:
+        F, sF, cF = (torch.broadcast_to(v, lam1.shape).to(a.dtype) for v in kepler_solution)
+        converged = torch.isfinite(F) & torch.isfinite(sF) & torch.isfinite(cF)
+    else:
+        F, sF, cF, converged = solve_generalized_kepler(eq, lam1, warm=kepler_warm)
 
     # --- in-plane coordinates ------------------------------------------------
     beta = 1.0 / (1.0 + torch.sqrt(torch.clamp(1.0 - e2, min=0.0)))

@@ -1,17 +1,20 @@
 """Batched orbital element sets and conversions.
 
-Port of ``outfit_tpu/elements/types.py`` without the Jacobians: NamedTuples
-of tensors with a shared leading batch shape.  Element ordering in
-6-vectors: Keplerian [a, e, i, Omega, omega, M], Equinoctial
-[a, h, k, p, q, lambda], Cometary [q, e, i, Omega, omega, nu].
+Port of ``outfit_tpu/elements/types.py``: NamedTuples of tensors with a
+shared leading batch shape, the conversions, and the 6x6 transformation
+Jacobians used for covariance propagation (``keplerian_element.rs:312``,
+``equinoctial_element.rs:1049``, ``cometary_element.rs:333-426``).
+Element ordering in 6-vectors: Keplerian [a, e, i, Omega, omega, M],
+Equinoctial [a, h, k, p, q, lambda], Cometary [q, e, i, Omega, omega, nu].
 """
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
 from outfit_tpu_torch.kepler.angles import principal_angle
+from outfit_tpu_torch.utils.linalg import matmul_small
 
 _EPS_REG = 1.0e-12  # near-circular / near-equatorial regularization threshold
 
@@ -125,3 +128,124 @@ def cometary_to_keplerian(com: CometaryElements) -> KeplerianElements:
 
 def cometary_to_equinoctial(com: CometaryElements) -> EquinoctialElements:
     return keplerian_to_equinoctial(cometary_to_keplerian(com))
+
+
+# ---------------------------------------------------------------------------
+# Jacobians (rows = target, cols = source; batched (..., 6, 6))
+# ---------------------------------------------------------------------------
+
+
+def _mat6(cols):
+    """Stack 6 column lists of scalars into (..., 6, 6)."""
+    return torch.stack([torch.stack(c, dim=-1) for c in cols], dim=-1)
+
+
+def jacobian_keplerian_to_equinoctial(kep: KeplerianElements):
+    """d(a,h,k,p,q,lambda)/d(a,e,i,Omega,omega,M).
+    Parity: ``keplerian_element.rs:312-`` (jacobian_to_equinoctial)."""
+    e = kep.eccentricity
+    varpi = kep.ascending_node_longitude + kep.periapsis_argument
+    sv, cv = torch.sin(varpi), torch.cos(varpi)
+    so, co = torch.sin(kep.ascending_node_longitude), torch.cos(kep.ascending_node_longitude)
+    half_i = kep.inclination / 2.0
+    th = torch.tan(half_i)
+    dth = 0.5 / torch.cos(half_i) ** 2
+
+    z = torch.zeros_like(e)
+    o = torch.ones_like(e)
+    cols = [
+        [o, z, z, z, z, z],  # d/da
+        [z, sv, cv, z, z, z],  # d/de
+        [z, z, z, dth * so, dth * co, z],  # d/di
+        [z, e * cv, -e * sv, th * co, -th * so, o],  # d/dOmega
+        [z, e * cv, -e * sv, z, z, o],  # d/domega
+        [z, z, z, z, z, o],  # d/dM
+    ]
+    return _mat6(cols)
+
+
+def jacobian_equinoctial_to_keplerian(eq: EquinoctialElements):
+    """d(a,e,i,Omega,omega,M)/d(a,h,k,p,q,lambda).
+
+    Parity: ``equinoctial_element.rs:1049-1140`` including the e->0 / i->0
+    regularizations at eps = 1e-12."""
+    h, k, p, q = eq.h, eq.k, eq.p, eq.q
+    e = torch.sqrt(h * h + k * k)
+    e2 = torch.clamp(e * e, min=_EPS_REG**2)
+    circ = e < _EPS_REG
+    dv_dh = torch.where(circ, 0.0, k / e2)
+    dv_dk = torch.where(circ, 0.0, -h / e2)
+    de_dh = h / torch.clamp(e, min=_EPS_REG)
+    de_dk = k / torch.clamp(e, min=_EPS_REG)
+
+    t = torch.sqrt(p * p + q * q)
+    t2 = torch.clamp(t * t, min=_EPS_REG**2)
+    eqt = t < _EPS_REG
+    denom = torch.clamp(t * (1.0 + t * t), min=_EPS_REG)
+    di_dp = torch.where(eqt, 0.0, 2.0 * p / denom)
+    di_dq = torch.where(eqt, 0.0, 2.0 * q / denom)
+    dn_dp = torch.where(eqt, 0.0, q / t2)
+    dn_dq = torch.where(eqt, 0.0, -p / t2)
+
+    z = torch.zeros_like(h)
+    o = torch.ones_like(h)
+    cols = [
+        [o, z, z, z, z, z],  # d/da
+        [z, de_dh, z, z, dv_dh, -dv_dh],  # d/dh
+        [z, de_dk, z, z, dv_dk, -dv_dk],  # d/dk
+        [z, z, di_dp, dn_dp, -dn_dp, z],  # d/dp
+        [z, z, di_dq, dn_dq, -dn_dq, z],  # d/dq
+        [z, z, z, z, z, o],  # d/dlambda
+    ]
+    return _mat6(cols)
+
+
+def jacobian_cometary_to_keplerian(com: CometaryElements):
+    """d(a,e,i,Omega,omega,M)/d(q,e,i,Omega,omega,nu).
+
+    Parity: ``cometary_element.rs:333-393`` (elliptic and hyperbolic
+    branches), with the elliptic dM/de carrying the sqrt(1-e^2) factor the
+    reference omits, as in the JAX package."""
+    qd = com.perihelion_distance
+    e = com.eccentricity
+    nu = com.true_anomaly
+    one_me = 1.0 - e
+    cn, sn = torch.cos(nu), torch.sin(nu)
+    denom = 1.0 + e * cn
+    denom2 = denom * denom
+
+    da_dq = 1.0 / one_me
+    da_de = qd / one_me**2
+
+    dm_de_ell = -sn * torch.sqrt(torch.abs(1.0 - e * e)) * (2.0 + e * cn) / denom2
+    dm_dnu_ell = torch.abs(1.0 - e * e) ** 1.5 / denom2
+    e2m1 = torch.sqrt(torch.abs(e * e - 1.0))
+    dm_de_hyp = sn * e2m1 * (2.0 + e * cn) / denom2
+    dm_dnu_hyp = e2m1**3 / denom2
+
+    ell = e < 1.0
+    dm_de = torch.where(ell, dm_de_ell, dm_de_hyp)
+    dm_dnu = torch.where(ell, dm_dnu_ell, dm_dnu_hyp)
+
+    z = torch.zeros_like(e)
+    o = torch.ones_like(e)
+    cols = [
+        [da_dq, z, z, z, z, z],  # d/dq
+        [da_de, o, z, z, z, dm_de],  # d/de
+        [z, z, o, z, z, z],  # d/di
+        [z, z, z, o, z, z],  # d/dOmega
+        [z, z, z, z, o, z],  # d/domega
+        [z, z, z, z, z, dm_dnu],  # d/dnu
+    ]
+    return _mat6(cols)
+
+
+def jacobian_cometary_to_equinoctial(com: CometaryElements):
+    """Chain rule via Keplerian.  Parity: ``cometary_element.rs:418-426``."""
+    kep = cometary_to_keplerian(com)
+    return matmul_small(jacobian_keplerian_to_equinoctial(kep), jacobian_cometary_to_keplerian(com))
+
+
+#: Reference-name alias (``OrbitalElements`` sum type, orbit_type/mod.rs:221):
+#: any of the three element representations.
+OrbitalElements = Union[KeplerianElements, EquinoctialElements, CometaryElements]

@@ -15,7 +15,9 @@ The two call sites of the fitting path each have their own channel count:
 * ``site="frame"``: 10 channels without (the observer frame table,
   :func:`outfit_tpu_torch.observer.cache._frame_interp`).
 
-:data:`launches` counts the launches of each, and nothing else.
+:data:`launches` counts the launches of each, and nothing else.  The build,
+the load and the count are safe from several threads (a caller may fit
+from several).
 """
 
 from __future__ import annotations
@@ -52,12 +54,14 @@ _SITES = {"body": (3, True), "frame": (10, False)}
 launches = {"body": 0, "frame": 0}
 
 _lib = None
-_lock = threading.Lock()
+#: guards the build, the load and the launch counts
+_lock = threading.RLock()
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _source_hash() -> str:
@@ -85,6 +89,11 @@ def build() -> tuple:
 
     Returns ``(path, compiler_output)``; the output holds ``ptxas``'s
     register and spill report when a build ran, else is empty."""
+    with _lock:
+        return _build()
+
+
+def _build() -> tuple:
     out_dir = os.path.join(_BUILD_ROOT, _source_hash())
     lib_path = os.path.join(out_dir, "libchebyshev.so")
     if os.path.exists(lib_path):
@@ -157,5 +166,6 @@ def evaluate(coeffs: torch.Tensor, mjd: torch.Tensor, t0: float, gran: float, si
         )
     if err != 0:
         raise RuntimeError(f"chebyshev kernel launch failed: CUDA error {err}")
-    launches[site] += 1
+    with _lock:
+        launches[site] += 1
     return out, dout

@@ -1,6 +1,6 @@
 """User-facing IOD API: Gauss initial orbit determination over a dataset.
 
-Port of ``outfit_tpu/iod/api.py`` (float64 path).  Parity with the
+Port of ``outfit_tpu/iod/api.py`` (both precisions).  Parity with the
 reference's ``FitIOD`` trait (``obs_dataset_api.rs``) and
 ``estimate_best_orbit`` (``trajectory.rs:429-545``):
 
@@ -29,7 +29,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from outfit_tpu_torch.elements.orb_elem import KIND_KEPLERIAN
+from outfit_tpu_torch.constants import ROT_EQUMJ2000_TO_ECLMJ2000
+from outfit_tpu_torch.elements.orb_elem import KIND_KEPLERIAN, ccek1
 from outfit_tpu_torch.elements.types import (
     CometaryElements,
     EquinoctialElements,
@@ -38,7 +39,7 @@ from outfit_tpu_torch.elements.types import (
     keplerian_to_equinoctial,
 )
 from outfit_tpu_torch.errors import NoFeasibleTriplets, NoViableOrbit
-from outfit_tpu_torch.iod.gauss import GaussTriplets, candidates_to_elements, gauss_candidates
+from outfit_tpu_torch.iod.gauss import GaussTriplets, candidates_to_elements, gauss_candidates, polish_selected
 from outfit_tpu_torch.iod.noise import draw_noise, trajectory_keys
 from outfit_tpu_torch.iod.params import IODParams
 from outfit_tpu_torch.iod.scoring import rms_orbit_error
@@ -46,7 +47,9 @@ from outfit_tpu_torch.iod.triplets import _enum_device
 from outfit_tpu_torch.observations.error_model import ErrorModel
 from outfit_tpu_torch.observer.cache import ObserverCache
 from outfit_tpu_torch.time.scales import Ut1Provider
+from outfit_tpu_torch.utils.linalg import rotate3
 from outfit_tpu_torch.utils.tensors import resolve_device
+
 
 @dataclass(slots=True)
 class FitResult:
@@ -62,14 +65,26 @@ class FitResult:
     elements: Optional[np.ndarray] = None  # (6,) element set of ``kind``
     equinoctial: Optional[np.ndarray] = None  # (6,) a,h,k,p,q,lambda (ecliptic)
 
+    @property
+    def orbit_quality(self) -> float:
+        """Scalar fit quality: the windowed IOD RMS (parity:
+        ``FitOrbitResult::orbit_quality``, constants.rs:157-162)."""
+        return self.rms
 
-def check_supported(params: IODParams) -> None:
-    """Raise for the IOD configurations this port does not run yet."""
-    if params.precision == "mixed":
-        raise NotImplementedError(
-            "IODParams(precision='mixed') is not ported yet "
-            "(ROADMAP: queue 1, item 4, mixed precision)"
-        )
+    @property
+    def orbital_elements(self):
+        """The ccek1 element set, Keplerian or Cometary per ``kind`` (parity:
+        ``FitOrbitResult::orbital_elements``, constants.rs:169-174)."""
+        if self.elements is None:
+            return None
+        cls = KeplerianElements if self.kind == KIND_KEPLERIAN else CometaryElements
+        return cls(self.epoch, *self.elements[:6])
+
+    @property
+    def keplerian(self) -> Optional[KeplerianElements]:
+        if self.elements is None or self.kind != KIND_KEPLERIAN:
+            return None
+        return KeplerianElements(self.epoch, *self.elements[:6])
 
 
 def prepare_dataset(dataset, gap_max: float, error_model: Optional[ErrorModel]) -> None:
@@ -220,12 +235,21 @@ def _to_equinoctial(kind, el, epoch):
 def _iod_kernel(tri: GaussTriplets, obs_arrays, lane_traj, window_mask, params: IODParams):
     """Candidates -> elements -> scores -> per-lane best -> per-trajectory
     best.  Returns per trajectory (rms, kind, elements, equinoctial vector,
-    epoch, corrected)."""
-    cands = gauss_candidates(tri, params)
+    epoch, corrected).
+
+    ``params.precision == "mixed"``: the roots, the f-g correction and the
+    scoring run in float32 (the observer positions and angles are cast after
+    the float64 observer cache; MJDs stay float64), the winner per
+    trajectory is selected in float32, and :func:`polish_selected`, ccek1
+    and a full-window rescore bring that one candidate back to float64."""
+    mixed = params.precision == "mixed"
+    cands = gauss_candidates(tri, params, work_dtype=torch.float32 if mixed else None)
     kind, el = candidates_to_elements(cands)  # (L, K), (L, K, 6)
     eq = _to_equinoctial(kind, el, cands.epoch)
 
     mjd, ra, dec, sra, sdec, helio = obs_arrays
+    if mixed:
+        ra, dec, sra, sdec, helio = (x.to(torch.float32) for x in (ra, dec, sra, sdec, helio))
     N = mjd.shape[1]
     S = int(params.selection_subsample)
     subsampled = 0 < S < N
@@ -278,6 +302,21 @@ def _iod_kernel(tri: GaussTriplets, obs_arrays, lane_traj, window_mask, params: 
     def gather(x):
         return x[sel, cand_sel]
 
+    if mixed:
+        ppos, pvel, pepoch, pcorr = polish_selected(
+            GaussTriplets(*(f[sel] for f in tri)),
+            *(gather(f) for f in (cands.r2, cands.pos, cands.vel, cands.epoch, cands.corrected,
+                                  cands.chi1, cands.chi2)),
+            params, params.polish_max_it,
+        )
+        kind64, el64 = ccek1(
+            rotate3(ROT_EQUMJ2000_TO_ECLMJ2000, ppos[..., 1, :]), rotate3(ROT_EQUMJ2000_TO_ECLMJ2000, pvel)
+        )
+        eq64 = _to_equinoctial(kind64, el64, pepoch)
+        rms64 = rms_orbit_error(eq64, *obs_arrays, window_mask[sel])
+        best64 = torch.where(has & torch.isfinite(seg_min), rms64, torch.inf)
+        return best64, kind64, el64, torch.stack(list(eq64[1:]), dim=-1), pepoch, pcorr & has
+
     rms_t = torch.where(has, seg_min, torch.inf)
     if subsampled:
         # the reported RMS is always full-window: rescore the winning lane
@@ -305,14 +344,16 @@ def _chunk_spans(n_traj: int, lanes_per_traj: int, batch_size: int):
 
 
 def _fit_full_iod(
-    dataset, ephem, params, seed, ut1, error_model, cache, device, draws=None,
+    dataset, ephem, params, seed, ut1, error_model, cache, device, draws=None, slim=False,
 ) -> Dict[str, FitResult]:
     """:func:`fit_full_iod`, with ``draws`` optionally in place of the
     port's own noise generator: ``draws(kept_traj_ids)`` returns their
     (T, max_triplets, n_real, 3, 2) normals (the tests pass the JAX
-    package's draws through it)."""
+    package's draws through it).  ``slim``: the RMS and the native-kind
+    elements cross to the host as float32 (reporting grade; the
+    equinoctial seed and the epoch stay float64), the JAX package's
+    ``slim_fetch`` contract."""
     params = params.validated()
-    check_supported(params)
     device = resolve_device(device)
     prepare_dataset(dataset, params.gap_max, error_model)
     if cache is None:
@@ -394,8 +435,11 @@ def _fit_full_iod(
                 ktrips[s:e],
                 params,
             )
+            if slim:
+                out = (out[0].float(), out[1], out[2].float()) + tuple(out[3:])
             outs.append([o.cpu().numpy() for o in out])
         rms, kind, el, eqv, epoch, corrected = (np.concatenate(c) for c in zip(*outs))
+        rms, el = rms.astype(np.float64, copy=False), el.astype(np.float64, copy=False)
 
         finite_l = np.isfinite(rms).tolist()
         rms_l, corr_l, epoch_l, kind_l = rms.tolist(), corrected.tolist(), epoch.tolist(), kind.tolist()
@@ -431,6 +475,36 @@ def fit_full_iod(
     return _fit_full_iod(dataset, ephem, params, seed, ut1, error_model, cache, device)
 
 
+def _fit_full_iod_stream(datasets, ephem, params, seed, ut1, error_model, device, draws=None):
+    return ((ds, _fit_full_iod(ds, ephem, params, seed, ut1, error_model, None, device, draws)) for ds in datasets)
+
+
+def fit_full_iod_stream(
+    datasets,
+    ephem,
+    params: IODParams = IODParams(),
+    seed: int = 0,
+    ut1: Optional[Ut1Provider] = None,
+    error_model: Optional[ErrorModel] = None,
+    depth: int = 2,
+    prefetch: bool = True,
+    device=None,
+):
+    """IOD over a stream of datasets; yields ``(dataset, results)`` in input
+    order, each dataset fitted when the caller asks for it.  Each dataset's
+    results are exactly :func:`fit_full_iod`'s.  ``depth`` and
+    ``prefetch`` are accepted and have no effect (see
+    :func:`outfit_tpu_torch.lsq.api.fit_lsq_stream`)."""
+    return _fit_full_iod_stream(datasets, ephem, params, seed, ut1, error_model, device)
+
+
+def fit_full_iod_parallel(*args, **kwargs) -> Dict[str, FitResult]:
+    """Alias of :func:`fit_full_iod` (parity: ``fit_full_iod_parallel``,
+    obs_dataset_api.rs:174-207): the batched device kernel is the parallel
+    path, and per-trajectory seeding makes results schedule-independent."""
+    return fit_full_iod(*args, **kwargs)
+
+
 def fit_iod(
     observations,
     ephem,
@@ -454,3 +528,10 @@ def fit_iod(
         for o in observations:
             ds.push_observation(traj_id, o.mjd_tt, o.ra, o.dec, o.ra_error, o.dec_error, o.observer)
     return fit_full_iod(ds, ephem, params, seed=seed, ut1=ut1, error_model=error_model, device=device)[traj_id]
+
+
+#: Reference-name aliases (constants.rs:134-195, gauss_result.rs:98-216):
+#: ``FitResult`` carries the Gauss outcome and is the value of the result map.
+GaussResult = FitResult
+FullOrbitResult = Dict[str, FitResult]
+IODRMS = float

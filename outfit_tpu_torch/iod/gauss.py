@@ -1,7 +1,7 @@
 """Batched Gauss IOD core.
 
-Port of ``outfit_tpu/iod/gauss.py`` (float64; the mixed-precision polish
-pass is not ported).  Reference ``src/initial_orbit_determination/gauss.rs``:
+Port of ``outfit_tpu/iod/gauss.py``.  Reference
+``src/initial_orbit_determination/gauss.rs``:
 
 * ``gauss_prelim`` (:532-549): scaled time intervals, LOS unit matrix + inverse,
 * ``coeff_eight_poly`` (:585-614): sparse degree-8 coefficients (c0, c3, c6),
@@ -9,7 +9,11 @@ pass is not ported).  Reference ``src/initial_orbit_determination/gauss.rs``:
   plausibility window; the ``max_tested_solutions`` smallest valid roots,
 * positions with light-time correction and the min-rho2 rejection,
   Gibbs velocity, eccentricity-controlled acceptance,
-* the two-sided Lagrange f-g refinement (:1284-1418) with chi warm starts.
+* the two-sided Lagrange f-g refinement (:1284-1418) with chi warm starts,
+* the mixed-precision path: ``gauss_candidates(..., work_dtype=float32)``
+  runs the iterative stages (Aberth, the f-g correction) in float32 while
+  the one-shot prelim algebra and the absolute MJDs stay float64, and
+  :func:`polish_selected` recovers float64 accuracy for the winners.
 
 Lane layout: a leading lane axis L (triplet x realization);
 ``pos[..., j, :]`` is the vector at epoch j.
@@ -27,7 +31,6 @@ from outfit_tpu_torch.kepler.universal import SolverConfig, velocity_correction
 from outfit_tpu_torch.utils.linalg import matvec_small, norm3, rotate3
 
 _EPS = torch.finfo(torch.float64).eps
-_TINY = torch.finfo(torch.float64).tiny
 
 
 class GaussTriplets(NamedTuple):
@@ -79,15 +82,20 @@ def _inv3(m):
         ],
         dim=-2,
     )
-    det_safe = torch.where(torch.abs(det) > _TINY, det, 1.0)
+    det_safe = torch.where(torch.abs(det) > torch.finfo(det.dtype).tiny, det, 1.0)
     return adj / det_safe[..., None, None], det
 
 
 def gauss_prelim(tri: GaussTriplets):
-    """tau1/tau3, LOS matrix S (columns = unit vectors), S^-1, a, b vectors."""
+    """tau1/tau3, LOS matrix S (columns = unit vectors), S^-1, a, b vectors.
+
+    The working dtype follows ``tri.ra``; ``tri.time`` stays float64 (an
+    absolute MJD does not fit in float32) and only the day-scale
+    differences are cast down."""
+    dtype = tri.ra.dtype
     t = tri.time
-    tau1 = GAUSS_GRAV * (t[..., 0] - t[..., 1])
-    tau3 = GAUSS_GRAV * (t[..., 2] - t[..., 1])
+    tau1 = (GAUSS_GRAV * (t[..., 0] - t[..., 1])).to(dtype)
+    tau3 = (GAUSS_GRAV * (t[..., 2] - t[..., 1])).to(dtype)
     tau13 = tau3 - tau1
     a = torch.stack([tau3 / tau13, -torch.ones_like(tau1), -(tau1 / tau13)], dim=-1)
     b = torch.stack(
@@ -101,7 +109,7 @@ def gauss_prelim(tri: GaussTriplets):
     u = unit_vectors(tri.ra, tri.dec)  # (L, 3epoch, 3coord)
     s_mat = torch.swapaxes(u, -1, -2)  # columns are unit vectors
     s_inv, det = _inv3(s_mat)
-    nonsingular = torch.abs(det) > 1e2 * _EPS
+    nonsingular = torch.abs(det) > 1e2 * torch.finfo(dtype).eps
     return tau1, tau3, s_mat, s_inv, a, b, u, nonsingular
 
 
@@ -150,14 +158,18 @@ def _fg_correction(
     tri_b, s_inv_b, u_b, dt01, dt21, pos, vel, epoch, chi1, chi2, alive0,
     params: IODParams, max_it: int,
 ):
-    """Two-sided Lagrange f-g refinement (gauss.rs:1284-1418).
+    """Two-sided Lagrange f-g refinement (gauss.rs:1284-1418), shared by the
+    candidate axis of :func:`gauss_candidates` and the float64 polish of the
+    selected candidate.  ``epoch`` stays float64; positions and velocities
+    run in ``pos.dtype``.
 
     The loop runs while some candidate is alive and unconverged (one
     device read per trip).  A lane that is done or dead keeps its warm
     starts, state and ``corrected`` decision frozen on the trips other
     lanes keep alive.  Returns (pos, vel, epoch, chi1, chi2, alive,
     committed)."""
-    feps = _EPS
+    feps = torch.finfo(pos.dtype).eps
+    # relative-step convergence floored at 10 eps of the working dtype
     done_eps = max(params.newton_eps, 10.0 * feps)
     # Newton-only solver, as the reference's velocity_correction
     # (velocity.rs:131-138)
@@ -231,10 +243,21 @@ def _fg_correction(
     return cpos, cvel, cepoch, chi1, chi2, alive, committed
 
 
-def gauss_candidates(tri: GaussTriplets, params: IODParams) -> GaussCandidates:
-    """Roots -> accepted preliminary states -> f-g corrected states, masked."""
+def gauss_candidates(tri: GaussTriplets, params: IODParams, work_dtype=None) -> GaussCandidates:
+    """Roots -> accepted preliminary states -> f-g corrected states, masked.
+
+    ``work_dtype`` is the precision of the iterative stages (Aberth, the f-g
+    correction); the one-shot prelim algebra (LOS inverse, polynomial
+    coefficients, singularity gate) runs at the input precision, and the
+    absolute MJDs stay float64."""
+    dtype = tri.ra.dtype if work_dtype is None else work_dtype
     tau1, tau3, s_mat, s_inv, a, b, u, nonsing = gauss_prelim(tri)
     c0, c3, c6 = coeff_eight_poly(tri, s_mat, s_inv, a, b)
+    if dtype != tri.ra.dtype:
+        tau1, tau3, s_inv, u, a, b, c0, c3, c6 = (
+            x.to(dtype) for x in (tau1, tau3, s_inv, u, a, b, c0, c3, c6)
+        )
+        tri = GaussTriplets(tri.ra.to(dtype), tri.dec.to(dtype), tri.time, tri.obs_pos.to(dtype))
 
     descartes_ok = descartes_upper_bound(c0, c3, c6) > 0
     roots = aberth_deg8(
@@ -242,7 +265,9 @@ def gauss_candidates(tri: GaussTriplets, params: IODParams) -> GaussCandidates:
         active=descartes_ok & nonsing, sort=False,
     )
     r2 = roots.real  # (L, 8)
-    imag_tol = torch.clamp(100.0 * _EPS * (1.0 + torch.abs(r2)), min=params.root_imag_eps)
+    # a real float32 root carries ~|z| 100 eps of imaginary noise: the
+    # reference's absolute cut is floored at a dtype-scaled relative one
+    imag_tol = torch.clamp(100.0 * torch.finfo(dtype).eps * (1.0 + torch.abs(r2)), min=params.root_imag_eps)
     root_ok = (
         (torch.abs(roots.imag) < imag_tol)
         & (r2 > 0.0)
@@ -286,7 +311,7 @@ def gauss_candidates(tri: GaussTriplets, params: IODParams) -> GaussCandidates:
     dt21 = (tri.time[..., 2] - tri.time[..., 1])[..., None]
     dt_ok = (torch.abs(dt01) > _EPS) & (torch.abs(dt21) > _EPS)
 
-    chi0 = torch.zeros_like(epoch)
+    chi0 = torch.zeros(epoch.shape, dtype=r2.dtype, device=epoch.device)
     cpos, cvel, cepoch, chi1, chi2, alive, committed = _fg_correction(
         tri8, s_inv8, u8, dt01, dt21, pos, vel, epoch, chi0, chi0,
         valid & dt_ok, params, params.newton_max_it,
@@ -297,6 +322,63 @@ def gauss_candidates(tri: GaussTriplets, params: IODParams) -> GaussCandidates:
     out_vel = torch.where(corrected[..., None], cvel, vel)
     out_epoch = torch.where(corrected, cepoch, epoch)
     return GaussCandidates(out_pos, out_vel, out_epoch, valid, corrected, chi1, chi2, r2)
+
+
+def polish_selected(tri: GaussTriplets, r2, pos, vel, epoch, corrected, chi1, chi2, params: IODParams, max_it: int = 12):
+    """Float64 refinement of the selected candidate per lane (mixed precision).
+
+    The float32 pass decides which candidate wins; this recovers float64
+    accuracy for that one candidate: three Newton steps on the degree-8
+    polynomial (float64 coefficients) from the float32 root, the float64
+    rebuild of the preliminary state (rho solve, light time, Gibbs), and for
+    corrected lanes the two-sided f-g correction resumed in float64 from the
+    (cast) float32 fixed point with its chi warm starts.  ``tri`` must be
+    the float64 triplets.  Returns (pos, vel, epoch, corrected)."""
+    f64 = torch.float64
+    tau1, tau3, s_mat, s_inv, a, b, u, _ = gauss_prelim(tri)
+    c0, c3, c6 = coeff_eight_poly(tri, s_mat, s_inv, a, b)
+
+    x = r2.to(f64)
+    bad_root = ~torch.isfinite(x) | (x <= 0.0)
+    x = torch.where(bad_root, 1.0, x)
+    for _ in range(3):
+        x2 = x * x
+        x3 = x2 * x
+        x5 = x3 * x2
+        x6 = x3 * x3
+        x7 = x6 * x
+        x8 = x6 * x2
+        pv = x8 + c6 * x6 + c3 * x3 + c0
+        dpv = 8.0 * x7 + 6.0 * c6 * x5 + 3.0 * c3 * x2
+        dpv = torch.where(torch.abs(dpv) > _EPS, dpv, 1.0)
+        # clamped to stay on the positive branch of the same root
+        x = x - torch.clamp(pv / dpv, -0.5 * x, 0.5 * x)
+
+    r2m3 = 1.0 / x**3
+    c_vec = torch.stack([a[..., 0] + b[..., 0] * r2m3, -torch.ones_like(r2m3), a[..., 2] + b[..., 2] * r2m3], dim=-1)
+    pos0, epoch0, _ = _positions_from_cvec(tri, s_inv, u, c_vec, params.min_rho2_au)
+    vel0 = gibbs_velocity(pos0, tau1, tau3)
+
+    # corrected lanes resume from the float32 fixed point; the others take
+    # the float64 preliminary rebuild (the reference returns the preliminary
+    # orbit for them, gauss.rs:1238-1247)
+    init_pos = torch.where(corrected[..., None, None], pos.to(f64), pos0)
+    init_vel = torch.where(corrected[..., None], vel.to(f64), vel0)
+    init_epoch = torch.where(corrected, epoch.to(f64), epoch0)
+
+    dt01 = tri.time[..., 0] - tri.time[..., 1]
+    dt21 = tri.time[..., 2] - tri.time[..., 1]
+    cpos, cvel, cepoch, _, _, alive, committed = _fg_correction(
+        tri, s_inv, u, dt01, dt21, init_pos, init_vel, init_epoch, chi1.to(f64), chi2.to(f64),
+        corrected & ~bad_root, params, max_it,
+    )
+    refined = corrected & alive & committed
+    out_pos = torch.where(refined[..., None, None], cpos, init_pos)
+    out_vel = torch.where(refined[..., None], cvel, init_vel)
+    out_epoch = torch.where(refined, cepoch, init_epoch)
+    # the corrected flag is the float32 pass's decision; a lane whose float64
+    # resume could not commit keeps the (cast) float32 fixed point
+    return out_pos, out_vel, out_epoch, corrected
 
 
 def candidates_to_elements(cands: GaussCandidates):

@@ -2,19 +2,19 @@
 
     p(x) = x^8 + c6 x^6 + c3 x^3 + c0.
 
-Port of ``outfit_tpu/iod/roots.py``: complex arithmetic as explicit float64
-(re, im) pairs, a fixed initial circle, sticky per-root freezing, and a
-batch-converged loop that reads the device once per trip.  Roots are
-returned sorted by real part unless ``sort=False``.
+Port of ``outfit_tpu/iod/roots.py``: complex arithmetic as explicit
+(re, im) pairs in the coefficients' precision (float64, or float32 on the
+mixed-precision path, with the division guard and the freeze threshold
+floored at that dtype's tiny and epsilon), a fixed initial circle, sticky
+per-root freezing, and a batch-converged loop that reads the device once
+per trip.  Roots are returned sorted by real part unless ``sort=False``.
 """
 
 import numpy as np
 import torch
 
-from outfit_tpu_torch.utils.tensors import as_f64, device_constant
+from outfit_tpu_torch.utils.tensors import as_floats, device_constant
 
-_TINY = torch.finfo(torch.float64).tiny
-_EPS = torch.finfo(torch.float64).eps
 #: initial circle: 8 angles with a Bini-style offset of 0.4
 _THETA = 2.0 * np.pi * np.arange(8) / 8.0 + 0.4
 _COS_THETA, _SIN_THETA = np.cos(_THETA), np.sin(_THETA)
@@ -24,10 +24,10 @@ def descartes_upper_bound(c0, c3, c6):
     """Upper bound on positive real roots via Descartes' rule of signs
     (sign sequence of [1, c6, c3, c0], zeros skipped).
     Parity: ``descartes_upper_bound_deg8_sparse`` (gauss.rs:214-240)."""
-    c6 = as_f64(c6)
+    c6, c3, c0 = as_floats(c6, c3, c0)
     prev = torch.ones_like(c6)
     cnt = torch.zeros(c6.shape, dtype=torch.int32, device=c6.device)
-    for c in (c6, as_f64(c3, c6.device), as_f64(c0, c6.device)):
+    for c in (c6, c3, c0):
         s = torch.sign(c)
         is_nonzero = s != 0
         cnt = cnt + (is_nonzero & (s * prev < 0)).to(torch.int32)
@@ -49,7 +49,7 @@ def _cmul(ar, ai, br, bi):
 
 def _cdiv(ar, ai, br, bi):
     d = br * br + bi * bi
-    d = torch.where(d > _TINY, d, 1.0)
+    d = torch.where(d > torch.finfo(d.dtype).tiny, d, 1.0)
     return (ar * br + ai * bi) / d, (ai * br - ar * bi) / d
 
 
@@ -59,10 +59,8 @@ def aberth_deg8(c0, c3, c6, max_iter: int = 50, eps: float = 1e-6, active=None, 
     ``active``: optional per-lane mask; inactive lanes are frozen from the
     start so they never hold the loop open (the reference skips Aberth for
     Descartes-zero triplets, gauss.rs:1130-1135)."""
-    c0 = as_f64(c0)
-    dev = c0.device
-    c3 = as_f64(c3, dev)
-    c6 = as_f64(c6, dev)
+    c0, c3, c6 = as_floats(c0, c3, c6)
+    dev, dtype = c0.device, c0.dtype
     shape = torch.broadcast_shapes(c0.shape, c3.shape, c6.shape)
     c0, c3, c6 = (torch.broadcast_to(c, shape)[..., None] for c in (c0, c3, c6))
 
@@ -85,12 +83,14 @@ def aberth_deg8(c0, c3, c6, max_iter: int = 50, eps: float = 1e-6, active=None, 
 
     # initial circle: radius |c0|^(1/8) floored at 0.3, angular offset 0.4
     r = torch.clamp(torch.abs(c0[..., 0]) ** 0.125, min=0.3)[..., None]
-    zr = r * device_constant(_COS_THETA, dev)
-    zi = r * device_constant(_SIN_THETA, dev)
+    zr = r * device_constant(_COS_THETA, dev, dtype)
+    zi = r * device_constant(_SIN_THETA, dev, dtype)
 
     eye = torch.eye(8, dtype=torch.bool, device=dev)
-    # freeze threshold: eps capped at ~machine precision, floored at 30 eps
-    thr = max(min(eps, 450.0 * 2.220446049250313e-16), 30.0 * _EPS)
+    # freeze threshold: eps capped at ~machine precision of float64, floored
+    # at 30 eps of the working dtype (a 1e-6 relative step is out of reach
+    # of clustered float32 roots; the mixed path re-Newtons the winner)
+    thr = max(min(eps, 450.0 * 2.220446049250313e-16), 30.0 * torch.finfo(dtype).eps)
 
     done = torch.zeros(zr.shape, dtype=torch.bool, device=dev)
     if active is not None:

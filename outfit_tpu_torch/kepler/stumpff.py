@@ -21,7 +21,7 @@ of the JAX loop whatever the batch holds.
 import numpy as np
 import torch
 
-from outfit_tpu_torch.utils.tensors import as_f64, device_constant
+from outfit_tpu_torch.utils.tensors import as_floats, device_constant
 
 #: Reduce |beta| below this before the series (power of 4 friendly).
 _BETA_THRESHOLD = 1.0
@@ -47,17 +47,17 @@ def s_funct(psi, alpha, k=None, kmax=None):
 
     Shapes broadcast.  ``k`` (from :func:`halving_count`) and ``kmax`` (any
     bound >= ``k.max()``) may be passed by a caller that already has them;
-    otherwise ``kmax`` is read from the device here.
+    otherwise ``kmax`` is read from the device here.  Runs in the
+    inputs' precision (float32 on the mixed-precision path).
     """
-    psi = as_f64(psi)
-    psi, alpha = torch.broadcast_tensors(psi, as_f64(alpha, psi.device))
+    psi, alpha = torch.broadcast_tensors(*as_floats(psi, alpha))
     beta = alpha * psi * psi
     if k is None:
         k = halving_count(psi, alpha)
     if kmax is None:
         kmax = int(k.max()) if k.numel() else 0
 
-    scale = device_constant(_POW2NEG, psi.device)[k]  # exact powers of two
+    scale = device_constant(_POW2NEG, psi.device, psi.dtype)[k]  # exact powers of two
     psi_r = psi * scale
     beta_r = beta * scale * scale
 

@@ -1,6 +1,6 @@
 """Universal Kepler solver and two-body propagation, batched and masked.
 
-Port of ``outfit_tpu/kepler/universal.py`` (float64):
+Port of ``outfit_tpu/kepler/universal.py``:
 
 * preliminary psi guesses in the three regimes (elliptic Newton on
   Kepler's equation, damped hyperbolic Newton, Cardano on Barker's cubic),
@@ -14,6 +14,11 @@ The JAX batch-converged ``while_loop``s are Python loops that read the
 device once per trip (``done.all()``); done lanes are frozen by masked
 ``where``s, so a lane's result does not depend on its batch.  Failures are
 status codes, not exceptions.
+
+The kernels run in their inputs' precision: float64, or float32 on the
+mixed-precision path, where the convergence tolerances are floored at the
+working dtype's epsilon as in the JAX package (``_conv``); the absolute
+angular-momentum guard of ``velocity_correction`` stays at float64's.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from outfit_tpu_torch.elements.orb_elem import eccentricity_control
 from outfit_tpu_torch.kepler.angles import principal_angle
 from outfit_tpu_torch.kepler.stumpff import halving_count, s_funct
 from outfit_tpu_torch.utils.linalg import cross3, norm3
-from outfit_tpu_torch.utils.tensors import as_f64
+from outfit_tpu_torch.utils.tensors import as_float, as_floats
 
 _EPS = torch.finfo(torch.float64).eps
 
@@ -52,9 +57,15 @@ class SolverConfig:
     auto_fallback: bool = True
 
 
-def _conv(cfg: SolverConfig) -> float:
-    """Effective convergence tolerance, floored at 100 eps."""
-    return max(cfg.convergency, 100.0 * _EPS)
+def _feps(x) -> float:
+    """Machine epsilon of the tensor ``x``'s dtype."""
+    return torch.finfo(x.dtype).eps
+
+
+def _conv(cfg: SolverConfig, x) -> float:
+    """Effective convergence tolerance: the configured value, floored at
+    100 eps of the working dtype (so float32 lanes can converge)."""
+    return max(cfg.convergency, 100.0 * _feps(x))
 
 
 class KeplerParams(NamedTuple):
@@ -84,7 +95,7 @@ class KeplerSolution(NamedTuple):
 
 def _prelim_elliptic(p: KeplerParams, cfg: SolverConfig):
     """psi guess for alpha < 0.  Parity: ``prelim_elliptic.rs:72-134``."""
-    conv = _conv(cfg)
+    conv = _conv(cfg, p.dt)
     neg_alpha = torch.clamp(-p.alpha, min=_EPS)
     sqrt_na = torch.sqrt(neg_alpha)
     a0 = 1.0 / neg_alpha
@@ -119,7 +130,7 @@ def _prelim_elliptic(p: KeplerParams, cfg: SolverConfig):
 
 def _prelim_hyperbolic(p: KeplerParams, cfg: SolverConfig):
     """psi guess for alpha > 0.  Parity: ``prelim_hyperbolic.rs:47-140``."""
-    conv = _conv(cfg)
+    conv = _conv(cfg, p.dt)
     alpha = torch.clamp(p.alpha, min=_EPS)
     sqrt_a = torch.sqrt(alpha)
     a0 = -1.0 / alpha
@@ -239,8 +250,8 @@ def _newton(psi0, p: KeplerParams, cfg: SolverConfig):
     Parity: ``run_newton`` (newton_solver.rs:240-277).  Each trip reads the
     device once: whether every lane is done, together with the halving
     bound of the trip's Stumpff evaluation."""
-    eps = _EPS
-    conv = _conv(cfg)
+    eps = _feps(p.dt)
+    conv = _conv(cfg, p.dt)
     res_tol = 10.0 * eps * (1.0 + torch.abs(torch.sqrt(p.mu) * p.dt))
 
     psi = psi0
@@ -314,7 +325,7 @@ def solve_kepuni(
     if psi_guess is None:
         psi0 = prelim_kepuni(p, cfg)
     else:
-        psi0 = torch.broadcast_to(as_f64(psi_guess, p.dt.device), p.dt.shape)
+        psi0 = torch.broadcast_to(as_float(psi_guess, p.dt.device), p.dt.shape)
 
     psi, converged = _newton(psi0, p, cfg)
 
@@ -367,13 +378,13 @@ def propagate_universal(
     mu=GAUSS_GRAV_SQUARED,
 ) -> PropagResult:
     """Propagate Cartesian states (..., 3) from t0 to t1 (broadcastable).
-    Parity: ``propagate_universal`` (propagation.rs:114-174)."""
-    eps = _EPS
-    position = as_f64(position)
-    velocity = as_f64(velocity, position.device)
+    Parity: ``propagate_universal`` (propagation.rs:114-174).  The epoch
+    difference is taken at the epochs' precision, then cast to the states'."""
+    position, velocity = as_floats(position, velocity)
+    eps = _feps(position)
     r0, sig0, alpha, ecc = initial_orbital_state(position, velocity, mu)
-    dt = as_f64(t1, position.device) - as_f64(t0, position.device)
-    dt = torch.broadcast_to(dt, r0.shape)
+    dt = as_float(t1, position.device) - as_float(t0, position.device)
+    dt = torch.broadcast_to(dt.to(position.dtype), r0.shape)
 
     mu_arr = torch.full_like(r0, mu)
     params = KeplerParams(dt=dt, r0=r0, sig0=sig0, mu=mu_arr, alpha=alpha, e0=ecc)
@@ -437,9 +448,8 @@ def velocity_correction(
     """
     if cfg is None:
         cfg = SolverConfig(convergency=eps)
-    x2 = as_f64(x2)
-    x1 = as_f64(x1, x2.device)
-    v2 = as_f64(v2, x2.device)
+    x1, x2, v2 = as_floats(x1, x2, v2)
+    deps = _feps(x2)
 
     mu = GAUSS_GRAV_SQUARED
     r2 = norm3(x2)
@@ -451,7 +461,7 @@ def velocity_correction(
 
     _accepted, ecc, _q, energy = eccentricity_control(x2, v2, peri_max, ecc_max)
 
-    dt = torch.broadcast_to(as_f64(dt, x2.device), r2.shape)
+    dt = torch.broadcast_to(as_float(dt, x2.device).to(x2.dtype), r2.shape)
     params = KeplerParams(
         dt=dt,
         r0=r2,
@@ -465,7 +475,7 @@ def velocity_correction(
     f = 1.0 - sol.s2 / r2
     g = dt - sol.s3 / math.sqrt(mu)
 
-    g_min = 100.0 * _EPS * (1.0 + torch.abs(dt))
+    g_min = 100.0 * deps * (1.0 + torch.abs(dt))
     g_bad = ~torch.isfinite(g) | (torch.abs(g) < g_min)
     g_safe = torch.where(g_bad, 1.0, g)
 

@@ -1,6 +1,7 @@
-"""fit_lsq: IOD + differential correction over a whole dataset.
+"""fit_lsq and its service modes: IOD + differential correction over
+whole datasets.
 
-Port of ``outfit_tpu/lsq/api.py`` (float64, two-body):
+Port of ``outfit_tpu/lsq/api.py`` (two-body, float64 or mixed precision):
 
 * without ``initial_orbits``: Gauss IOD (:func:`outfit_tpu_torch.iod.api.
   fit_full_iod`) on the same observer cache and device, then the seeded
@@ -11,7 +12,11 @@ Port of ``outfit_tpu/lsq/api.py`` (float64, two-body):
 * the batched correction loops run on ``device``; a trajectory whose
   correction fails (status != OK) falls back to its seed orbit,
 * per trajectory: elements + full 6x6 covariance + 1-sigma uncertainties +
-  normalised RMS.
+  normalised RMS, as a ``{traj_id: LsqResult}`` dict or, with
+  ``as_table=True``, a columnar :class:`outfit_tpu_torch.lsq.table.LsqTable`,
+* the service modes: :func:`fit_lsq_stream` (datasets fitted one by one
+  as the caller asks for them), :func:`fit_lsq_escalating` and
+  :func:`fit_lsq_stream_escalating` (failures refitted with richer stages).
 
 The JAX package's power-of-two trajectory and observation buckets exist to
 bound its recompiles; PyTorch runs eagerly, so the batch here is exactly
@@ -21,13 +26,19 @@ Results do not depend on it: the loops are lane-isolated.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from outfit_tpu_torch.elements.uncertainty import uncertainties_from_covariance
+from outfit_tpu_torch.elements.types import (
+    EquinoctialElements,
+    equinoctial_to_keplerian,
+    jacobian_equinoctial_to_keplerian,
+)
+from outfit_tpu_torch.elements.uncertainty import propagate_covariance, uncertainties_from_covariance
 from outfit_tpu_torch.errors import (
     BizarreOrbit,
     DifferentialCorrectionDiverged,
@@ -39,7 +50,6 @@ from outfit_tpu_torch.iod.api import (
     _gather_obs_tables,
     _padded_layout,
     base_arrays,
-    check_supported as check_iod_supported,
     prepare_dataset,
 )
 from outfit_tpu_torch.iod.params import IODParams
@@ -48,8 +58,9 @@ from outfit_tpu_torch.lsq.iteration import SEL_ACTIVE, ObsArrays
 from outfit_tpu_torch.lsq.loop import STATUS_OK, check_supported, run_differential_correction
 from outfit_tpu_torch.observations.error_model import ErrorModel
 from outfit_tpu_torch.observer.cache import ObserverCache
+from outfit_tpu_torch.observations.dataset import ObsDataset
 from outfit_tpu_torch.time.scales import Ut1Provider
-from outfit_tpu_torch.utils.tensors import resolve_device
+from outfit_tpu_torch.utils.tensors import device_constant, resolve_device
 
 # kernel status code -> result-error string
 _STATUS_NAMES = {
@@ -99,9 +110,56 @@ class LsqResult:
     total_newton_iterations: int = 0
     iod: Optional[FitResult] = None
 
+    @property
+    def orbit_quality(self) -> float:
+        """Scalar fit quality (parity: ``FitOrbitResult::orbit_quality``,
+        constants.rs:157-162): the normalised RMS of a converged correction,
+        the IOD RMS on fallback."""
+        if self.fell_back_to_iod and self.iod is not None:
+            return self.iod.rms
+        return self.normalised_rms
 
-def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device):
-    """Differential correction from an explicit per-trajectory seed map."""
+    def _eq(self):
+        return EquinoctialElements(
+            *(torch.as_tensor(x, dtype=torch.float64) for x in (self.epoch, *self.equinoctial))
+        )
+
+    @property
+    def orbital_elements(self):
+        """Equinoctial element set of the fit (parity:
+        ``FitOrbitResult::orbital_elements``, constants.rs:169-174)."""
+        return None if self.equinoctial is None else self._eq()
+
+    @property
+    def keplerian(self):
+        return None if self.equinoctial is None else equinoctial_to_keplerian(self._eq())
+
+    @property
+    def keplerian_covariance(self):
+        """The 6x6 covariance propagated to Keplerian elements,
+        J Sigma J^T (parity: ``OrbitalElements::to_keplerian``,
+        orbit_type/mod.rs:323-443)."""
+        if self.covariance is None or self.equinoctial is None:
+            return None
+        j = jacobian_equinoctial_to_keplerian(self._eq())
+        return propagate_covariance(torch.as_tensor(self.covariance, dtype=torch.float64), j).numpy()
+
+    @property
+    def keplerian_uncertainties(self):
+        """Per-element 1-sigma in Keplerian elements."""
+        cov = self.keplerian_covariance
+        if cov is None:
+            return None
+        return np.sqrt(np.maximum(np.diag(cov), 0.0))
+
+
+#: Reference-name alias (``DifferentialCorrectionOutput``, diff_cor.rs:202-225).
+DifferentialCorrectionOutput = LsqResult
+
+
+def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False):
+    """Differential correction from an explicit per-trajectory seed map.
+    ``slim``: the covariance crosses to the host as float32."""
     results: Dict[str, LsqResult] = {}
     rows = []
     for tid in dataset.iter_traj_id():
@@ -134,16 +192,19 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device):
         torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config
     )
     n_active = ((out.selection == SEL_ACTIVE) & valid).sum(dim=-1)
+    # the JAX package returns the covariance mirrored from its lower triangle
+    cov_tri = out.covariance[:, device_constant(_TRIL_I, device, torch.int64), device_constant(_TRIL_J, device, torch.int64)]
+    if slim:
+        cov_tri = cov_tri.float()
 
-    status, elements, rms, cov_full, n_active_vec, its = (
+    status, elements, rms, cov_tri, n_active_vec, its = (
         t.cpu().numpy()
         for t in (
-            out.status, out.elements, out.normalised_rms, out.covariance,
+            out.status, out.elements, out.normalised_rms, cov_tri,
             n_active, out.total_newton_iterations,
         )
     )
-    # the JAX package returns the covariance mirrored from its lower triangle
-    cov = _unpack_cov(cov_full[:, _TRIL_I, _TRIL_J])
+    cov = _unpack_cov(cov_tri.astype(np.float64, copy=False))
     sigmas = uncertainties_from_covariance(torch.from_numpy(cov)).numpy()
 
     ok_l = ((status == STATUS_OK) & np.isfinite(elements).all(axis=1)).tolist()
@@ -185,24 +246,50 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device):
     return results
 
 
+def _as_table(dataset, res, minimal=False):
+    """The columnar form of a result dict.  The port builds it from the
+    per-row results (the JAX package's fused finalize fills the columns
+    directly): rows materialize identically, and an IOD failure carries
+    its error text in ``host_errors`` under ``IOD_HOST_SCREENED``.
+    ``minimal``: the converged rows' IOD element columns are NaN (the JAX
+    package's ``minimal_fetch`` contract)."""
+    from outfit_tpu_torch.lsq.table import LsqTable
+
+    table = LsqTable.from_results(dataset.traj_ids, res)
+    if minimal:
+        table.iod_elements[table.converged] = np.nan
+        table.iod_equinoctial[table.converged] = np.nan
+    return table
+
+
+def _check_fetch_modes(as_table, minimal_fetch):
+    if minimal_fetch and not as_table:
+        raise ValueError(
+            "minimal_fetch=True requires as_table=True (the per-row dict "
+            "materializes every row's IOD FitResult eagerly)"
+        )
+
+
 def _fit_lsq(
     dataset, ephem, iod_params, config, seed, ut1, error_model, initial_orbits, cache, device,
-    draws=None,
-) -> Dict[str, LsqResult]:
+    draws=None, as_table=False, slim=False, minimal=False,
+):
     """:func:`fit_lsq` with an optional IOD noise source (``draws``, see
-    :func:`outfit_tpu_torch.iod.api._fit_full_iod`)."""
+    :func:`outfit_tpu_torch.iod.api._fit_full_iod`) and the stream's
+    ``slim``/``minimal`` result contracts (see :func:`fit_lsq_stream`)."""
+    _check_fetch_modes(as_table, minimal)
     check_supported(config)
-    if initial_orbits is None:
-        check_iod_supported(iod_params)
     device = resolve_device(device)
     prepare_dataset(dataset, iod_params.gap_max, error_model)
     if cache is None:
         cache = ObserverCache.build(dataset, ephem, ut1, device=device)
     if initial_orbits is not None:
-        return _fit_lsq_seeded(dataset, config, initial_orbits, cache, device)
-    iod = _fit_full_iod(dataset, ephem, iod_params, seed, ut1, None, cache, device, draws)
-    res = _fit_lsq_seeded(dataset, config, iod, cache, device)
-    return {tid: res[tid] for tid in dataset.traj_ids}
+        res = _fit_lsq_seeded(dataset, config, initial_orbits, cache, device)
+    else:
+        iod = _fit_full_iod(dataset, ephem, iod_params, seed, ut1, None, cache, device, draws, slim)
+        res = _fit_lsq_seeded(dataset, config, iod, cache, device, slim)
+        res = {tid: res[tid] for tid in dataset.traj_ids}
+    return _as_table(dataset, res, minimal) if as_table else res
 
 
 def fit_lsq(
@@ -215,19 +302,229 @@ def fit_lsq(
     error_model: Optional[ErrorModel] = None,
     initial_orbits: Optional[Dict[str, FitResult]] = None,
     cache: Optional[ObserverCache] = None,
+    as_table: bool = False,
     device=None,
-) -> Dict[str, LsqResult]:
+):
     """IOD + differential correction for every trajectory of the dataset.
 
     Without ``initial_orbits``, Gauss IOD (``iod_params``, ``seed``) seeds
     the correction and the results come in dataset order; with it, the
     correction resumes from those orbits (parity: diff_cor
     obs_dataset_api.rs:68-71).  ``iod_params.gap_max`` drives the batch RMS
-    correction either way.  ``device``: where the observer cache, IOD and
-    correction run; default ``"cuda"`` when a card is present, else
+    correction either way.  ``as_table=True`` returns a columnar
+    :class:`~outfit_tpu_torch.lsq.table.LsqTable` instead of the
+    ``{traj_id: LsqResult}`` dict.  ``device``: where the observer cache,
+    IOD and correction run; default ``"cuda"`` when a card is present, else
     ``"cpu"``.  The parameters are the JAX package's, in its order, with
-    ``device`` in place of ``mesh`` (and no ``as_table``).
+    ``device`` last in place of ``mesh``.
     """
     return _fit_lsq(
-        dataset, ephem, iod_params, config, seed, ut1, error_model, initial_orbits, cache, device
+        dataset, ephem, iod_params, config, seed, ut1, error_model, initial_orbits, cache, device,
+        as_table=as_table,
+    )
+
+
+def _fit_lsq_stream(
+    datasets, ephem, iod_params, config, seed, ut1, error_model, slim_fetch, as_table, minimal_fetch, device,
+    draws=None,
+):
+    _check_fetch_modes(as_table, minimal_fetch)
+    check_supported(config)
+    return (
+        (ds, _fit_lsq(ds, ephem, iod_params, config, seed, ut1, error_model, None, None, device,
+                      draws, as_table, slim_fetch, minimal_fetch))
+        for ds in datasets
+    )
+
+
+def fit_lsq_stream(
+    datasets,
+    ephem,
+    iod_params: IODParams = IODParams(),
+    config: DifferentialCorrectionConfig = DifferentialCorrectionConfig(),
+    seed: int = 0,
+    ut1: Optional[Ut1Provider] = None,
+    error_model: Optional[ErrorModel] = None,
+    depth: int = 2,
+    prefetch: bool = True,
+    slim_fetch: bool = False,
+    as_table: bool = False,
+    minimal_fetch: bool = False,
+    device=None,
+):
+    """Fits over a stream of datasets; yields ``(dataset, results)`` in
+    input order, each dataset fitted when the caller asks for it.  Each
+    dataset's results are bitwise those of a sequential :func:`fit_lsq`.
+
+    ``depth`` and ``prefetch`` are accepted and have no effect: the JAX
+    package overlaps datasets through asynchronous dispatch, while the
+    port's fits read the device once per loop trip, and a worker thread
+    that overlapped them measured no faster than fitting one by one.
+
+    ``slim_fetch=True``: the covariance and the IOD's RMS and native-kind
+    elements cross to the host as float32 (so the covariance, the 1-sigma
+    values, the IOD reporting columns and the fallback rows' RMS are their
+    float32 rounding); LSQ elements, RMS and status, the equinoctial seed
+    and the epochs stay exact.  ``as_table=True``: each dataset's results as
+    an :class:`~outfit_tpu_torch.lsq.table.LsqTable`.  ``minimal_fetch=True``
+    (requires ``as_table=True``): the converged rows' IOD element columns
+    are NaN, every other column is unchanged.  The parameters are the JAX
+    package's, in its order, with ``device`` last in place of ``mesh``.
+    """
+    return _fit_lsq_stream(
+        datasets, ephem, iod_params, config, seed, ut1, error_model, slim_fetch, as_table, minimal_fetch, device,
+    )
+
+
+def _default_retry(r):
+    return (not r.ok) or r.fell_back_to_iod
+
+
+def _fit_lsq_escalating(dataset, ephem, stages, seed, ut1, error_model, retry_if, device, draws=None):
+    if not stages:
+        raise ValueError("fit_lsq_escalating needs at least one (params, config) stage")
+    retry_if = retry_if or _default_retry
+    cur = dataset
+    results: Dict[str, LsqResult] = {}
+    for k, (params, cfg) in enumerate(stages):
+        res = _fit_lsq(cur, ephem, params, cfg, seed, ut1, error_model, None, None, device, draws)
+        results.update(res)
+        if k == len(stages) - 1:
+            break
+        retry = {tid for tid, r in res.items() if retry_if(r)}
+        parts = [g for tid, g in cur.trajectory_groups() if tid in retry and g.size]
+        if not parts:
+            break
+        cur = cur.subset(np.concatenate(parts))
+    return results
+
+
+def fit_lsq_escalating(
+    dataset,
+    ephem,
+    stages,
+    seed: int = 0,
+    ut1: Optional[Ut1Provider] = None,
+    error_model: Optional[ErrorModel] = None,
+    retry_if=None,
+    device=None,
+):
+    """Tiered fitting: stage 0 fits every trajectory; those that fail it
+    (``retry_if(result)``, default: not converged through the least-squares
+    loop, ``not r.ok or r.fell_back_to_iod``) are refitted with each richer
+    stage, on the failing subset only.  ``stages``: ``(IODParams,
+    DifferentialCorrectionConfig)`` pairs, lean to rich.  The noise seeds
+    fold in the trajectory id, so a trajectory's stage-k result does not
+    depend on which others escalated with it.  Returns the
+    ``{traj_id: LsqResult}`` dict in dataset order of first appearance."""
+    return _fit_lsq_escalating(dataset, ephem, stages, seed, ut1, error_model, retry_if, device)
+
+
+def _fit_lsq_stream_escalating(
+    datasets, ephem, stages, seed, ut1, error_model, retry_if, flush_every, device, draws=None, **stream_kw,
+):
+    if not stages:
+        raise ValueError("needs at least one (params, config) stage")
+    user_retry = retry_if is not None
+    retry_if = retry_if or _default_retry
+    for name in ("depth", "prefetch"):  # accepted, no effect (fit_lsq_stream)
+        stream_kw.pop(name, None)
+    stream_kw = dict(dict(as_table=True, slim_fetch=False, minimal_fetch=False), **stream_kw)
+    params0, cfg0 = stages[0]
+    for _, cfg in stages[1:]:
+        check_supported(cfg)
+    held = []  # [(dataset, results, [failed tids])]
+
+    def failed_tids(res):
+        if isinstance(res, dict):
+            return [tid for tid, r in res.items() if retry_if(r)]
+        # the default predicate retries exactly the rows whose converged
+        # flag is down; a user predicate sees every row
+        tids = np.asarray(res.traj_ids, object)
+        if not user_retry:
+            tids = tids[~np.asarray(res.converged)]
+        return [tid for tid in tids if retry_if(res.result(tid))]
+
+    def flush():
+        """One batched pass per richer stage over the held datasets'
+        failures; patch them in and yield the held datasets in order."""
+        parts, prefixes = [], []
+        for hi, (ds, _res, fails) in enumerate(held):
+            fset = set(fails)
+            rows = [g for tid, g in ds.trajectory_groups() if tid in fset and g.size]
+            if rows:
+                parts.append(ds.subset(np.concatenate(rows)))
+                prefixes.append(str(hi))
+        if parts:
+            # held-index-prefixed ids: the same id may occur in several
+            # held datasets, and the prefix selects the escalated noise
+            cur = ObsDataset.concat(parts, rename=lambda k, tid: f"{prefixes[k]}|{tid}")
+            for k, (p, c) in enumerate(stages[1:], start=1):
+                res_k = _fit_lsq(cur, ephem, p, c, seed, ut1, error_model, None, None, device, draws)
+                clean = {}
+                for mtid, r in res_k.items():
+                    hi_s, tid = mtid.split("|", 1)
+                    rr = dataclasses.replace(r, traj_id=tid)
+                    clean[mtid] = rr
+                    tgt = held[int(hi_s)][1]
+                    if isinstance(tgt, dict):
+                        tgt[tid] = rr
+                    else:
+                        tgt.patch_row(tid, rr)
+                if k == len(stages) - 1:
+                    break
+                # the predicate sees the clean ids, never the prefix
+                retry = {t for t, rr in clean.items() if retry_if(rr)}
+                rows = [g for t, g in cur.trajectory_groups() if t in retry and g.size]
+                if not rows:
+                    break
+                cur = cur.subset(np.concatenate(rows))
+        out = [(ds, res) for ds, res, _ in held]
+        held.clear()
+        return out
+
+    for ds, res in _fit_lsq_stream(
+        datasets, ephem, params0, cfg0, seed, ut1, error_model, device=device, draws=draws, **stream_kw,
+    ):
+        held.append((ds, res, failed_tids(res)))
+        if len(held) >= max(flush_every, 1):
+            yield from flush()
+    yield from flush()
+
+
+def fit_lsq_stream_escalating(
+    datasets,
+    ephem,
+    stages,
+    seed: int = 0,
+    ut1: Optional[Ut1Provider] = None,
+    error_model: Optional[ErrorModel] = None,
+    retry_if=None,
+    flush_every: int = 4,
+    refit_fill: int = 8,
+    device=None,
+    **stream_kw,
+):
+    """Tiered fitting over a stream: the lean stage (``stages[0]``) streams
+    every dataset through :func:`fit_lsq_stream` (``stream_kw``: ``depth``
+    and ``prefetch``, which have no effect there, ``slim_fetch``,
+    ``as_table`` (default True here), ``minimal_fetch``), and the trajectories that fail it are refitted with
+    the richer stages in batched passes spanning up to ``flush_every``
+    datasets' failures.  Yields ``(dataset, results)`` in input order, the
+    failed rows patched before their dataset is yielded.
+
+    Escalated rows draw their noise under the id ``"<k>|<tid>"`` (k = the
+    dataset's position in the held buffer), so a fixed stream is
+    reproducible, but an escalated row's realization differs from a
+    standalone :func:`fit_lsq_escalating` run.
+
+    ``refit_fill`` is accepted and has no effect: the JAX package tops each
+    refit up with discarded filler rows to pin XLA's compile shapes, and the
+    port compiles nothing per shape, so it fits the failures alone (a real
+    row's result does not depend on its batchmates either way).  The
+    parameters are the JAX package's, in its order, with ``device`` in
+    place of ``mesh``, after ``refit_fill``.
+    """
+    return _fit_lsq_stream_escalating(
+        datasets, ephem, stages, seed, ut1, error_model, retry_if, flush_every, device, **stream_kw,
     )

@@ -1,6 +1,6 @@
 """One Newton step of differential correction, batched over trajectories.
 
-Port of ``outfit_tpu/lsq/iteration.py`` (two-body, float64):
+Port of ``outfit_tpu/lsq/iteration.py`` (two-body):
 
 * observation partials: two-body propagation with analytic 6x3 element
   Jacobians, chain rule through the ecliptic->equatorial rotation and the
@@ -8,6 +8,11 @@ Port of ``outfit_tpu/lsq/iteration.py`` (two-body, float64):
 * residuals with RA wrapping,
 * the weighted least-squares solve: normal matrix, free-element masking
   with unit diagonal, Cholesky inversion, normalised RMS, correction norm.
+
+The step runs in the elements' and observations' precision (float32 in the
+mixed-precision pre-warm; MJDs and epochs stay float64), and
+``jacobian_dtype=torch.float32`` evaluates only the element Jacobians in
+float32 beside a float64 propagation (the mixed-precision main loop).
 
 Every contraction is written as broadcast-multiply + sum, the JAX
 package's summation form (``einsum``/``@`` would sum in another order, and
@@ -61,7 +66,7 @@ class IterationResult(NamedTuple):
     kepler: torch.Tensor  # (T, N, 3) (F, sin F, cos F) — warm start
 
 
-def observation_partials(elements_vec, epoch, obs: ObsArrays, kepler_warm=None):
+def observation_partials(elements_vec, epoch, obs: ObsArrays, jacobian_dtype=None, kepler_warm=None):
     """Predicted (RA, Dec) + d/d(elem) for every (trajectory, observation).
 
     ``elements_vec`` (T, 6) equinoctial in ecliptic J2000; ``epoch`` (T,).
@@ -70,16 +75,35 @@ def observation_partials(elements_vec, epoch, obs: ObsArrays, kepler_warm=None):
     eq = EquinoctialElements(
         epoch[:, None], *(elements_vec[:, None, i] for i in range(6))
     )
-    st = propagate_twobody(
-        eq, epoch[:, None], obs.mjd, compute_derivatives=True,
-        kepler_warm=kepler_warm,
-    )
+    if jacobian_dtype is None:
+        st = propagate_twobody(
+            eq, epoch[:, None], obs.mjd, compute_derivatives=True,
+            kepler_warm=kepler_warm,
+        )
+        st_pos, st_vel, st_dpos, st_conv = st.position, st.velocity, st.dpos_delem, st.converged
+    else:
+        st = propagate_twobody(
+            eq, epoch[:, None], obs.mjd, compute_derivatives=False, kepler_warm=kepler_warm,
+        )
+        # the Jacobian pass re-propagates the same elements in the lower
+        # precision and reuses the float64 Kepler solution; the epoch stays
+        # float64 (dt is formed against float64 MJDs)
+        eq_lo = EquinoctialElements(eq[0], *(f.to(jacobian_dtype) for f in eq[1:]))
+        st_j = propagate_twobody(
+            eq_lo, epoch[:, None], obs.mjd, compute_derivatives=True,
+            kepler_solution=tuple(
+                f.to(jacobian_dtype) for f in (st.anomaly, st.anomaly_sin, st.anomaly_cos)
+            ),
+        )
+        st_pos, st_vel = st.position, st.velocity
+        st_dpos = st_j.dpos_delem.to(st_pos.dtype)
+        st_conv = st.converged & st_j.converged
     kepler = torch.stack([st.anomaly, st.anomaly_sin, st.anomaly_cos], dim=-1)
 
-    rot = device_constant(ROT_ECLMJ2000_TO_EQUMJ2000, st.position.device, st.position.dtype)
-    pos = torch.sum(rot * st.position[..., None, :], -1)  # (T, N, 3) equ
-    vel = torch.sum(rot * st.velocity[..., None, :], -1)
-    dpos = torch.sum(rot * st.dpos_delem[..., None, :], -1)  # (T, N, 6, 3)
+    rot = device_constant(ROT_ECLMJ2000_TO_EQUMJ2000, st_pos.device, st_pos.dtype)
+    pos = torch.sum(rot * st_pos[..., None, :], -1)  # (T, N, 3) equ
+    vel = torch.sum(rot * st_vel[..., None, :], -1)
+    dpos = torch.sum(rot * st_dpos[..., None, :], -1)  # (T, N, 6, 3)
 
     rel = pos - obs.helio_pos
     rel_norm = torch.sqrt(torch.sum(rel * rel, dim=-1))
@@ -102,7 +126,7 @@ def observation_partials(elements_vec, epoch, obs: ObsArrays, kepler_warm=None):
     d_ra = torch.sum(dpos * d_ra_d_pos[..., None, :], -1)  # (T, N, 6)
     d_dec = torch.sum(dpos * d_dec_d_pos[..., None, :], -1)
 
-    prop_ok = st.converged & torch.isfinite(ra) & torch.isfinite(dec)
+    prop_ok = st_conv & torch.isfinite(ra) & torch.isfinite(dec)
     return ra, dec, d_ra, d_dec, prop_ok, kepler
 
 
@@ -113,11 +137,11 @@ def _angular_diff(obs, calc):
 
 
 def single_iteration(
-    elements_vec, epoch, selection, obs: ObsArrays, free_elements, kepler_warm=None
+    elements_vec, epoch, selection, obs: ObsArrays, free_elements, jacobian_dtype=None, kepler_warm=None
 ) -> IterationResult:
     """One batched Newton step."""
     ra_c, dec_c, d_ra, d_dec, prop_ok, kepler = observation_partials(
-        elements_vec, epoch, obs, kepler_warm
+        elements_vec, epoch, obs, jacobian_dtype, kepler_warm
     )
 
     active = (selection == SEL_ACTIVE) & obs.valid & prop_ok

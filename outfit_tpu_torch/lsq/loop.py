@@ -1,10 +1,12 @@
 """Nested Newton / outlier-rejection loops, batched over trajectories.
 
-Port of ``outfit_tpu/lsq/loop.py`` with ``precision="f64"`` and the
-two-body propagator: the inner Newton loop with inversion / bizarre /
-divergence / stagnation / convergence checks in the reference's order, the
-outer projection-based chi-squared outlier-rejection loop, and the final
-covariance rescale.
+Port of ``outfit_tpu/lsq/loop.py`` with the two-body propagator: the
+inner Newton loop with inversion / bizarre / divergence / stagnation /
+convergence checks in the reference's order, the outer projection-based
+chi-squared outlier-rejection loop, and the final covariance rescale.
+``precision="mixed"`` adds the float32 pre-warm (:func:`_prewarm_f32`),
+float32 Jacobians inside the float64 loop, and one float64 linearization
+at the converged elements.
 
 Every trajectory carries its own loop-state lanes; terminal failures are
 status codes, frozen in place while other trajectories continue.  The JAX
@@ -71,11 +73,7 @@ class _St(NamedTuple):
 
 def check_supported(cfg: DifferentialCorrectionConfig) -> None:
     """Raise for the configurations this port does not run yet."""
-    if cfg.precision == "mixed":
-        raise NotImplementedError(
-            "precision='mixed' is not ported yet (ROADMAP: queue 1, item 4, mixed precision)"
-        )
-    if cfg.precision != "f64":
+    if cfg.precision not in ("f64", "mixed"):
         raise ValueError(
             f"DifferentialCorrectionConfig.precision must be 'f64' or 'mixed', got {cfg.precision!r}"
         )
@@ -91,6 +89,50 @@ def _elements_bizarre(vec, limits):
         *(vec[..., i] for i in range(6)),
     )
     return is_bizarre(eq, limits)
+
+
+def _prewarm_f32(elements0, epoch, obs: ObsArrays, cfg: DifferentialCorrectionConfig, selection0, free):
+    """Float32 Newton pre-warm (mixed precision): iterate until the
+    correction norm reaches the float32 floor, with guarded advances only
+    (a step is taken only if the inversion succeeded and the result is not
+    bizarre).  No statuses and no outlier decisions: the float64 loop owns
+    every contract; this only moves the start close to the chi-squared
+    minimum.  Absolute MJDs stay float64.  Returns (elements float64,
+    iterations used), the count being the batch's trip count on every row,
+    as in the JAX package (so it depends on the batch)."""
+    T = obs.mjd.shape[0]
+    f32 = torch.float32
+    obs32 = ObsArrays(
+        obs.mjd, *(x.to(f32) for x in (obs.ra, obs.dec, obs.sigma_ra, obs.sigma_dec, obs.helio_pos)), obs.valid,
+    )
+    # the sigma-weighted correction norm has a float32 noise floor around
+    # 0.01-0.1: stop on the threshold or when the decrease plateaus
+    thr = max(cfg.convergence_threshold, 1e-3)
+    dev = obs.mjd.device
+    el = elements0.to(f32)
+    prev_norm = torch.full((T,), torch.finfo(f32).max, dtype=f32, device=dev)
+    done = torch.zeros(T, dtype=torch.bool, device=dev)
+    kep = torch.full(obs.mjd.shape + (3,), float("nan"), dtype=f32, device=dev)
+    it = 0
+    while it < cfg.prewarm_max_iterations and bool((~done).any()):
+        res = single_iteration(
+            el, epoch, selection0, obs32, free, kepler_warm=(kep[..., 0], kep[..., 1], kep[..., 2]),
+        )
+        sane = (
+            res.inversion_ok
+            & torch.isfinite(res.correction_norm)
+            & ~_elements_bizarre(res.corrected, cfg.orbital_limits)
+        )
+        adv = ~done & sane
+        el = torch.where(adv[:, None], res.corrected, el)
+        plateau = (res.correction_norm >= 0.5 * prev_norm) & (it >= 2)
+        done = done | ~sane | (adv & ((res.correction_norm < thr) | plateau))
+        prev_norm = torch.where(adv, res.correction_norm, prev_norm)
+        kep = res.kepler
+        it += 1
+    bad = ~torch.isfinite(el).all(dim=-1)
+    el64 = torch.where(bad[:, None], elements0, el.to(torch.float64))
+    return el64, torch.full((T,), it, dtype=torch.int32, device=dev)
 
 
 def run_differential_correction(
@@ -115,9 +157,17 @@ def run_differential_correction(
     # uploaded once: a per-iteration upload would wait for the card's queue
     free = torch.as_tensor([bool(f) for f in cfg.free_elements], device=dev)
     limits = cfg.orbital_limits
+    elements0 = torch.as_tensor(elements0, **f64)
+    # mixed: float32 Jacobians inside the float64 loop (the residuals stay
+    # float64, so the fixed point is the float64 one)
+    mixed = cfg.precision == "mixed"
+    jac_dtype = torch.float32 if mixed else None
+    total0 = torch.zeros(T, dtype=torch.int32, device=dev)
+    if mixed:
+        elements0, total0 = _prewarm_f32(elements0, epoch, obs, cfg, selection0, free)
 
     st = _St(
-        elements=torch.as_tensor(elements0, **f64),
+        elements=elements0,
         selection=selection0,
         status=torch.zeros(T, dtype=torch.int32, device=dev),
         last_rms=torch.full((T,), _BIG, **f64),
@@ -130,7 +180,7 @@ def run_differential_correction(
         last_ddec=torch.zeros((T, N, 6), **f64),
         inv_ok_last=torch.zeros(T, dtype=torch.bool, device=dev),
         outer_done=torch.zeros(T, dtype=torch.bool, device=dev),
-        total_newton=torch.zeros(T, dtype=torch.int32, device=dev),
+        total_newton=total0,
         kepler=torch.full((T, N, 3), float("nan"), **f64),
     )
 
@@ -144,7 +194,7 @@ def run_differential_correction(
         while it < cfg.max_newton_iterations and bool((~inner_done).any()):
             act = ~inner_done
             res = single_iteration(
-                st.elements, epoch, st.selection, obs, free,
+                st.elements, epoch, st.selection, obs, free, jac_dtype,
                 kepler_warm=(st.kepler[..., 0], st.kepler[..., 1], st.kepler[..., 2]),
             )
 
@@ -261,6 +311,24 @@ def run_differential_correction(
     ):
         st = outer_body(p, st)
         p += 1
+
+    if mixed:
+        # one float64 linearization at the converged elements refreshes what
+        # the float32 Jacobians accumulated (the elements do not move)
+        res = single_iteration(
+            st.elements, epoch, st.selection, obs, free,
+            kepler_warm=(st.kepler[..., 0], st.kepler[..., 1], st.kepler[..., 2]),
+        )
+        keep = (st.status == STATUS_RUNNING) & res.inversion_ok
+        k1, k2 = keep[:, None], keep[:, None, None]
+        st = st._replace(
+            last_rms=torch.where(keep, res.normalised_rms, st.last_rms),
+            last_cov=torch.where(k2, res.covariance, st.last_cov),
+            last_normal=torch.where(k2, res.normal_matrix, st.last_normal),
+            last_m=torch.where(keep, res.num_measurements, st.last_m),
+            last_res_ra=torch.where(k1, res.residual_ra, st.last_res_ra),
+            last_res_dec=torch.where(k1, res.residual_dec, st.last_res_dec),
+        )
 
     # final status: running lanes that completed the loops are OK
     status = torch.where(st.status == STATUS_RUNNING, STATUS_OK, st.status).to(torch.int32)

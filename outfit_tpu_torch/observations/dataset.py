@@ -1,5 +1,6 @@
 # Source: outfit_tpu/observations/dataset.py (trimmed to MPC 80-column ingestion,
-# push_observation, subset, error models and the batch RMS correction).
+# push_observation, subset, concat, trajectory groups, error models and the
+# batch RMS correction; no bias columns).
 """ObsDataset: the observation container consumed by the fitting pipeline.
 
 Struct-of-arrays (numpy, host-side) with integer indices into
@@ -177,13 +178,99 @@ class ObsDataset:
     def iter_traj_id(self):
         return iter(self.traj_ids)
 
-    def trajectory_obs_indices(self, traj_id: str) -> np.ndarray:
-        """Observation indices of one trajectory, sorted by epoch."""
+    def _traj_row(self, traj_id: str) -> int:
         try:
-            ti = self.traj_ids.index(traj_id)
+            return self.traj_ids.index(traj_id)
         except ValueError:
             from outfit_tpu_torch.errors import TrajectoryIdNotFound
 
             raise TrajectoryIdNotFound(traj_id) from None
+
+    def len_trajectory(self, traj_id: str) -> int:
+        ti = self._traj_row(traj_id)
+        return int(np.sum(self.traj_index == ti))
+
+    def trajectory_obs_indices(self, traj_id: str) -> np.ndarray:
+        """Observation indices of one trajectory, sorted by epoch."""
+        ti = self._traj_row(traj_id)
         idx = np.nonzero(self.traj_index == ti)[0]
         return idx[np.argsort(self.mjd_tt[idx], kind="stable")]
+
+    def trajectory_groups(self):
+        """[(traj_id, epoch-sorted observation indices)] for every
+        trajectory, in ``iter_traj_id`` order (one lexsort for the whole
+        dataset)."""
+        if len(self.mjd_tt) == 0:
+            empty = np.empty(0, dtype=np.int64)
+            return [(tid, empty) for tid in self.traj_ids]
+        order = np.lexsort((self.mjd_tt, self.traj_index))
+        ti_sorted = self.traj_index[order]
+        bounds = np.nonzero(np.diff(ti_sorted))[0] + 1
+        # each chunk keyed by its first member's trajectory (original index)
+        groups = {int(self.traj_index[s[0]]): s for s in np.split(order, bounds)}
+        empty = np.empty(0, dtype=np.int64)
+        return [(tid, groups.get(ti, empty)) for ti, tid in enumerate(self.traj_ids)]
+
+    def invalidate_caches(self) -> "ObsDataset":
+        """Kept for the JAX package's API: its fit pipelines memoize device
+        and layout tables on a dataset and need this after an in-place
+        mutation; the port memoizes nothing on a dataset, so it only returns
+        the dataset."""
+        return self
+
+    @classmethod
+    def concat(cls, datasets, rename=None) -> "ObsDataset":
+        """Concatenate datasets preserving every column (catalog codes,
+        magnitudes).  ``rename(k, tid)`` maps the k-th input's trajectory id
+        to the output id, required when the same id occurs in several inputs
+        (the escalation path merging failures of a dataset stream); default
+        keeps ids unchanged.  Identical observers are merged by value."""
+        datasets = list(datasets)
+        if not datasets:
+            return cls()
+        out = cls()
+        n_obs = [len(d) for d in datasets]
+        total = sum(n_obs)
+        for f in ("mjd_tt", "ra", "dec", "ra_error", "dec_error"):
+            setattr(out, f, np.concatenate([getattr(d, f) for d in datasets]))
+        # optional per-observation columns: kept only if every input has
+        # them aligned (a half-populated column would misalign the rest)
+        if all(len(d.mag) == n for d, n in zip(datasets, n_obs)):
+            out.mag = np.concatenate([d.mag for d in datasets])
+        if all(len(d.catalog) == n for d, n in zip(datasets, n_obs)):
+            out.catalog = np.concatenate([d.catalog for d in datasets])
+        tidx, oidx = [], []
+        obs_seen: dict = {}  # Observer (frozen dataclass) -> merged index
+        for k, d in enumerate(datasets):
+            t_off = len(out.traj_ids)
+            out.traj_ids.extend(tid if rename is None else rename(k, tid) for tid in d.traj_ids)
+            remap = np.empty(len(d.observers), np.int64)
+            for j, o in enumerate(d.observers):
+                m = obs_seen.get(o)
+                if m is None:
+                    m = obs_seen[o] = len(out.observers)
+                    out.observers.append(o)
+                remap[j] = m
+            tidx.append(d.traj_index + t_off)
+            oidx.append(remap[np.asarray(d.observer_index, np.int64)])
+        out.traj_index = np.concatenate(tidx)
+        out.observer_index = np.concatenate(oidx)
+        assert len(out) == total
+        return out
+
+    def compact_observers(self) -> "ObsDataset":
+        """New dataset keeping only the referenced observers (order of first
+        reference); ``subset``/``concat`` keep the full observer lists."""
+        import dataclasses
+
+        seen = {}
+        new_index = np.empty(len(self.observer_index), np.int64)
+        for j, oi in enumerate(np.asarray(self.observer_index, np.int64)):
+            k = seen.get(int(oi))
+            if k is None:
+                k = seen[int(oi)] = len(seen)
+            new_index[j] = k
+        out = dataclasses.replace(self)
+        out.observer_index = new_index
+        out.observers = [self.observers[oi] for oi in seen]
+        return out

@@ -1,5 +1,7 @@
 """Tensor construction helpers shared by the port's modules."""
 
+import threading
+
 import torch
 
 
@@ -11,6 +13,26 @@ def as_f64(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float64, device=device)
 
 
+def as_float(x, device=None) -> torch.Tensor:
+    """``x`` as a floating-point tensor in its working precision: a floating
+    tensor is returned as it is (float32 on the mixed-precision paths);
+    anything else becomes float64, a non-tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x if x.is_floating_point() else x.to(torch.float64)
+    return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+
+def as_floats(first, *rest):
+    """The arguments as floating-point tensors of one working precision (the
+    promotion of their dtypes), on the first one's device."""
+    first = as_float(first)
+    ts = [first] + [as_float(x, first.device) for x in rest]
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return [t.to(dtype) for t in ts]
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means ``"cuda"`` when a card is
     present, else ``"cpu"``."""
@@ -20,15 +42,22 @@ def resolve_device(device=None) -> torch.device:
 
 
 _CONSTANTS = {}
+_CONSTANTS_LOCK = threading.Lock()
 
 
 def device_constant(array, device, dtype=torch.float64) -> torch.Tensor:
     """The module-level numpy constant ``array`` as a tensor on ``device``,
     uploaded once per (array, device, dtype) and shared: uploading a host
     array on every call is a blocking copy that waits for the card's queue.
+    The upload from pageable host memory completes before it returns, so
+    callers fitting from other threads or CUDA streams may read the tensor
+    at once.
     Callers must not modify the result."""
     key = (id(array), torch.device(device), dtype)
     t = _CONSTANTS.get(key)
     if t is None:
-        t = _CONSTANTS[key] = torch.as_tensor(array, dtype=dtype, device=device)
+        with _CONSTANTS_LOCK:
+            t = _CONSTANTS.get(key)
+            if t is None:
+                t = _CONSTANTS[key] = torch.as_tensor(array, dtype=dtype, device=device)
     return t

@@ -137,3 +137,52 @@ def test_uncertainties_from_covariance_matches_jax():
         uncertainties_from_covariance(_t(cov)).numpy(), np.asarray(j_sigmas(jnp.asarray(cov))),
         rtol=1e-15, atol=0,
     )
+
+
+def _jacobian_inputs(kind):
+    """Batched inputs of the four Jacobians: 200 random elliptic orbits (a
+    few circular / equatorial lanes for the regularised branches), and
+    cometary sets with e spanning the elliptic and hyperbolic branches."""
+    arrs = _kep_arrays(3, 200)
+    arrs[2][:3] = 0.0
+    arrs[3][3:6] = 0.0
+    if kind in ("keplerian_to_equinoctial", "equinoctial_to_keplerian"):
+        return arrs
+    rng = np.random.default_rng(4)
+    n = 200
+    e = np.concatenate([rng.uniform(0.05, 0.95, n // 2), rng.uniform(1.05, 3.0, n // 2)])
+    return [np.full(n, 57000.0), rng.uniform(0.5, 4.0, n), e, rng.uniform(0.0, 1.2, n),
+            rng.uniform(0, 2 * np.pi, n), rng.uniform(0, 2 * np.pi, n), rng.uniform(-1.0, 1.0, n)]
+
+
+@pytest.mark.parametrize("kind", [
+    "keplerian_to_equinoctial", "equinoctial_to_keplerian", "cometary_to_keplerian", "cometary_to_equinoctial",
+])
+def test_jacobians_match_jax(kind):
+    """The 6x6 element Jacobians against the JAX ones at rtol 1e-12."""
+    import outfit_tpu.elements.types as jt
+    import outfit_tpu_torch.elements.types as tt
+
+    arrs = _jacobian_inputs(kind)
+    src = kind.split("_to_")[0]
+    if src == "equinoctial":
+        arrs = [np.asarray(f) for f in j_kep2eq(JKep(*map(jnp.asarray, arrs)))]
+    cls_j = {"keplerian": JKep, "equinoctial": JEq, "cometary": jt.CometaryElements}[src]
+    cls_t = {"keplerian": KeplerianElements, "equinoctial": EquinoctialElements, "cometary": tt.CometaryElements}[src]
+    jj = np.asarray(getattr(jt, f"jacobian_{kind}")(cls_j(*map(jnp.asarray, arrs))))
+    jp = getattr(tt, f"jacobian_{kind}")(cls_t(*map(_t, arrs))).numpy()
+    assert jp.shape == (200, 6, 6) and np.isfinite(jp).all()
+    np.testing.assert_allclose(jp, jj, rtol=1e-12, atol=0)
+
+
+def test_propagate_covariance_matches_jax():
+    from outfit_tpu.elements.uncertainty import propagate_covariance as j_propagate
+    from outfit_tpu_torch.elements.uncertainty import propagate_covariance
+
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(20, 6, 6))
+    cov = a @ np.swapaxes(a, -1, -2) * 1e-10
+    jac = rng.normal(size=(20, 6, 6))
+    want = np.asarray(j_propagate(jnp.asarray(cov), jnp.asarray(jac)))
+    got = propagate_covariance(_t(cov), _t(jac)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())

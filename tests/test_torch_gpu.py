@@ -11,9 +11,16 @@ atol 1e-15 AU on position, 1e-16 AU/day on velocity); the frame table's
 entries (rotation-matrix entries and the equation of the equinoxes) at 1e-15.
 The IOD on the card against the CPU: the noise draws and triplet indices
 identical, outcomes and flags identical, elements and RMS at rtol 1e-8.
+Mixed precision on the card against the CPU at the seed-grade bars of
+tests/test_torch_mixed.py (float32 rounds differently on the two); mixed
+results identical whether TF32 matmuls are allowed or not; the stream on
+the card bitwise equal to sequential fits; the kernel's first build and
+launch counts, and the shared device constants, safe from two threads.
 """
 
 import os
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -28,6 +35,7 @@ from outfit_tpu_torch import (
     ObsDataset,
     fit_full_iod,
     fit_lsq,
+    fit_lsq_stream,
 )
 from outfit_tpu_torch.ephem import chebyshev_cuda
 from outfit_tpu_torch.ephem.bodies import Body
@@ -186,3 +194,106 @@ def test_unseeded_fit_lsq_on_card_matches_cpu(eph, cuda):
         assert (a.ok, a.status, a.fell_back_to_iod, a.n_active_obs) == (b.ok, b.status, b.fell_back_to_iod, b.n_active_obs)
         np.testing.assert_allclose(b.iod.equinoctial, a.iod.equinoctial, rtol=1e-8, atol=1e-12)
         np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9)
+
+
+MIXED_IOD = dict(n_noise_realizations=3, max_triplets=4, precision="mixed")
+MIXED_CFG = dict(precision="mixed", prewarm_max_iterations=16, divergence_grace_iterations=2)
+
+
+def _mixed_fit(eph, dev):
+    ds = ObsDataset.from_mpc_80_col_files([os.path.join(DATA, f"{n}.obs") for n in FIXTURES])
+    return fit_lsq(ds, eph, IODParams(**MIXED_IOD), DifferentialCorrectionConfig(**MIXED_CFG), 42,
+                   error_model=ErrorModel.fcct14(), device=dev)
+
+
+def test_mixed_fit_on_card_matches_cpu_at_seed_grade(eph, cuda):
+    """IOD: identical success sets, RMS ratio median < 1.001, max < 2,
+    elements median rel < 1e-8; LSQ: the same statuses and the same-basin
+    criterion |d nRMS| < 1e-6 (1 + nRMS)."""
+    cpu, card = _mixed_fit(eph, "cpu"), _mixed_fit(eph, cuda)
+    assert list(card) == list(cpu)
+    ratio, rel = [], []
+    for tid, a in cpu.items():
+        b = card[tid]
+        assert a.iod.ok == b.iod.ok and (a.ok, a.status, a.fell_back_to_iod) == (b.ok, b.status, b.fell_back_to_iod)
+        if a.iod.ok:
+            ratio.append(b.iod.rms / a.iod.rms)
+            rel.append(np.max(np.abs(b.iod.equinoctial - a.iod.equinoctial) / (1 + np.abs(a.iod.equinoctial))))
+        if a.ok and not a.fell_back_to_iod:
+            assert abs(b.normalised_rms - a.normalised_rms) < 1e-6 * (1 + a.normalised_rms), tid
+    assert np.median(ratio) < 1.001 and max(ratio) < 2.0 and np.median(rel) < 1e-8
+
+
+def test_mixed_fit_independent_of_tf32(eph, cuda):
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = _mixed_fit(eph, cuda)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = _mixed_fit(eph, cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for tid, a in off.items():
+        b = on[tid]
+        assert (a.ok, a.status, a.iod.rms, a.normalised_rms) == (b.ok, b.status, b.iod.rms, b.normalised_rms), tid
+        np.testing.assert_array_equal(a.equinoctial, b.equinoctial)
+
+
+def test_stream_on_card_equals_sequential(eph, cuda):
+    params, cfg = IODParams(**MIXED_IOD), DifferentialCorrectionConfig(**MIXED_CFG)
+    names = FIXTURES[:3]
+    kw = dict(error_model=ErrorModel.fcct14(), device=cuda)
+    ref = [fit_lsq(ObsDataset.from_mpc_80_col(os.path.join(DATA, f"{n}.obs")), eph, params, cfg, 42, **kw)
+           for n in names]
+    out = list(fit_lsq_stream([ObsDataset.from_mpc_80_col(os.path.join(DATA, f"{n}.obs")) for n in names],
+                              eph, params, cfg, 42, depth=3, **kw))
+    for (_, res), r in zip(out, ref):
+        assert list(res) == list(r)
+        for tid in res:
+            a, b = res[tid], r[tid]
+            assert (a.ok, a.status, a.iod.rms, a.normalised_rms) == (b.ok, b.status, b.iod.rms, b.normalised_rms)
+            np.testing.assert_array_equal(a.equinoctial, b.equinoctial)
+            if a.covariance is not None:
+                np.testing.assert_array_equal(a.covariance, b.covariance)
+
+
+def test_first_kernel_use_and_constants_from_two_threads(eph, cuda, tmp_path, monkeypatch):
+    """Two threads build and load the kernel into an empty build directory
+    at once, upload the same device constant, and launch; the library is
+    built once, both get the same constant tensor, and no launch is lost
+    from the count."""
+    from outfit_tpu_torch.utils import tensors
+
+    monkeypatch.setattr(chebyshev_cuda, "_BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(chebyshev_cuda, "_lib", None)
+    const = np.arange(7.0)
+    table = eph.to(cuda).tables[Body.EMB]
+    mjd = torch.as_tensor(_epochs(13, 4096), device=cuda)
+    chebyshev_cuda.reset_launch_counts()
+    barrier = threading.Barrier(2)
+    got, errors = [], []
+
+    def work():
+        try:
+            barrier.wait(timeout=60)
+            got.append(tensors.device_constant(const, cuda))
+            for _ in range(50):
+                interpolate_body(table, mjd)
+            torch.cuda.synchronize()
+        except Exception as exc:  # reported below, on the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert got[0] is got[1]
+    assert chebyshev_cuda.launches["body"] == 100
+    assert len(list(tmp_path.iterdir())) == 1

@@ -571,11 +571,24 @@ def test_fit_iod_dataset_form_matches_batch(teph, quick_fit):
 
 
 def test_entry_points_take_the_jax_parameters_in_order():
-    """``fit_lsq``, ``fit_full_iod`` and ``fit_iod`` take the JAX package's
-    parameters in its positional order; the stated differences are
-    ``device`` (last, in place of ``mesh``) and no ``as_table``."""
-    for port, ref in ((fit_lsq, j_fit_lsq), (fit_full_iod, j_fit_full_iod), (fit_iod, j_fit_iod)):
-        want = [n for n in inspect.signature(ref).parameters if n not in ("mesh", "as_table")] + ["device"]
+    """Every entry point takes the JAX package's parameters in its
+    positional order; the one stated difference is ``device``, last (before
+    a ``**`` catch-all), in place of ``mesh``."""
+    import outfit_tpu.iod.api as jiod
+    import outfit_tpu.lsq.api as jlsq
+    import outfit_tpu_torch.iod.api as tiod
+    import outfit_tpu_torch.lsq.api as tlsq
+
+    pairs = [(getattr(tiod, n), getattr(jiod, n)) for n in ("fit_full_iod", "fit_iod", "fit_full_iod_stream")]
+    pairs += [
+        (getattr(tlsq, n), getattr(jlsq, n))
+        for n in ("fit_lsq", "fit_lsq_stream", "fit_lsq_escalating", "fit_lsq_stream_escalating")
+    ]
+    for port, ref in pairs:
+        params = inspect.signature(ref).parameters
+        want = [n for n in params if n != "mesh"]
+        var_kw = [n for n, p in params.items() if p.kind is inspect.Parameter.VAR_KEYWORD]
+        want.insert(want.index(var_kw[0]) if var_kw else len(want), "device")
         assert list(inspect.signature(port).parameters) == want, port.__name__
 
 

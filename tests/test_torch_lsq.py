@@ -249,18 +249,46 @@ def test_seed_rows_without_a_usable_seed_match_jax(jeph, teph, case):
     assert (b.equinoctial is None) == (a.equinoctial is None)
 
 
-@pytest.mark.parametrize("what", ["iod_mixed", "mixed", "nbody"])
+@pytest.mark.parametrize("what", ["stream_nbody", "escalating_nbody", "nbody"])
 def test_unported_paths_raise(teph, what):
+    """The N-body propagator raises through every entry point (the stream
+    at its call, before any dataset is fitted)."""
     ds = ObsDataset.from_mpc_80_col(os.path.join(DATA, "8467.obs"))
-    seeds = None if what == "iod_mixed" else _seeds("8467", FitResult)
-    iod_params = IODParams(precision="mixed") if what == "iod_mixed" else IODParams()
-    cfg = {
-        "iod_mixed": DifferentialCorrectionConfig(),
-        "mixed": DifferentialCorrectionConfig(precision="mixed"),
-        "nbody": DifferentialCorrectionConfig(propagator=PropagatorKind.n_body()),
-    }[what]
+    cfg = DifferentialCorrectionConfig(propagator=PropagatorKind.n_body())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_lsq(ds, teph, iod_params, cfg, initial_orbits=seeds, device="cpu")
+        if what == "stream_nbody":
+            outfit_tpu_torch.fit_lsq_stream([ds], teph, IODParams(), cfg, device="cpu")
+        elif what == "escalating_nbody":
+            outfit_tpu_torch.fit_lsq_escalating(ds, teph, [(IODParams(), cfg)], device="cpu")
+        else:
+            fit_lsq(ds, teph, IODParams(), cfg, initial_orbits=_seeds("8467", FitResult), device="cpu")
+
+
+def test_config_fields_and_serialisation_match_jax():
+    """``DifferentialCorrectionConfig`` has the JAX package's fields in its
+    order (a positional construction binds alike), and ``to_dict`` /
+    ``from_dict`` of it and of ``PropagatorKind`` round-trip and give the
+    JAX package's dicts."""
+    import dataclasses
+
+    from outfit_tpu.propagator.config import NBodyConfig as JNBodyConfig
+    from outfit_tpu.propagator.config import PropagatorKind as JPropagatorKind
+    from outfit_tpu_torch.propagator.config import NBodyConfig
+
+    names = [f.name for f in dataclasses.fields(DifferentialCorrectionConfig)]
+    assert names == [f.name for f in dataclasses.fields(JConfig)]
+    assert names.index("prewarm_max_iterations") == names.index("precision") + 1
+    kw = dict(precision="mixed", prewarm_max_iterations=16, divergence_grace_iterations=2, max_newton_iterations=4,
+              free_elements=(True, True, False, True, True, True))
+    for port, ref in (
+        (DifferentialCorrectionConfig(**kw), JConfig(**kw)),
+        (DifferentialCorrectionConfig(propagator=PropagatorKind.n_body(NBodyConfig.with_planets())),
+         JConfig(propagator=JPropagatorKind.n_body(JNBodyConfig.with_planets()))),
+    ):
+        d = port.to_dict()
+        assert d == ref.to_dict()
+        assert DifferentialCorrectionConfig.from_dict(d) == port
+        assert PropagatorKind.from_dict(port.propagator.to_dict()) == port.propagator
 
 
 def test_port_imports_without_jax():
