@@ -43,8 +43,8 @@ _NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: the kernel keeps a row's coefficients in a runtime loop; the launcher
-#: refuses more than this many per channel
+#: the launcher holds one instantiation of the kernel for each coefficient
+#: count per channel from 2 to this, and refuses the rest
 MAX_COEFF = 32
 
 #: channel count and derivative flag of each call site
@@ -151,6 +151,9 @@ def evaluate(coeffs: torch.Tensor, mjd: torch.Tensor, t0: float, gran: float, si
         raise ValueError(f"chebyshev kernel takes 2..{MAX_COEFF} coefficients, G >= 1")
     if not (coeffs.is_contiguous() and mjd.is_contiguous()):
         raise ValueError("chebyshev kernel takes contiguous tensors")
+    if (ch * n_coeff) % 2 == 0 and coeffs.data_ptr() % 16:
+        raise ValueError("chebyshev kernel copies rows of a multiple of 16 bytes in 16-byte "
+                         "pieces: coeffs must be 16-byte aligned")
     n = mjd.shape[0]
     out = torch.empty((n, ch), dtype=torch.float64, device=mjd.device)
     dout = torch.empty((n, ch), dtype=torch.float64, device=mjd.device) if deriv else None

@@ -20,15 +20,11 @@ import torch
 from outfit_tpu_torch.ephem import chebyshev_cuda
 from outfit_tpu_torch.ephem.chebyshev import granule_index
 from outfit_tpu_torch.frames import RefEpoch, RefSystem, equequ, rotmt, rotpn
-from outfit_tpu_torch.observer.geometry import (
-    earth_fixed_position,
-    earth_fixed_velocity,
-    helio_position,
-    helio_velocity,
-)
+from outfit_tpu_torch.observer.geometry import earth_fixed_position, earth_fixed_velocity, helio_state
 from outfit_tpu_torch.time import gmst
 from outfit_tpu_torch.time.scales import Ut1Provider
 from outfit_tpu_torch.utils.linalg import matmul_small
+from outfit_tpu_torch.utils.tensors import resolve_device
 
 #: Chebyshev-Lobatto coefficients per frame-table granule
 _N_COEFF = 14
@@ -98,7 +94,7 @@ def _frame_interp(coeffs, mjd, t0, gran):
     return _frame_split(vals)
 
 
-def _cache_compute(mjd, tut, fp, fv, t0, gran, ephem, n_gran):
+def _cache_compute(mjd, tut, fp, fv, t0, gran, ephem, cache_velocity, n_gran):
     coeffs = _frame_table(t0, gran, n_gran, mjd.device)
     m_slow, eqq = _frame_interp(coeffs, mjd, t0, gran)
     g = gmst(tut) + eqq
@@ -106,8 +102,9 @@ def _cache_compute(mjd, tut, fp, fv, t0, gran, ephem, n_gran):
     m = matmul_small(m_slow, rot_earth)
     geo_pos = torch.sum(m * fp[..., None, :], -1)
     geo_vel = torch.sum(m * fv[..., None, :], -1)
-    hp = helio_position(ephem, mjd, geo_pos)
-    hv = helio_velocity(ephem, mjd, geo_vel)
+    if not cache_velocity:
+        geo_vel = torch.zeros_like(geo_vel)
+    hp, hv = helio_state(ephem, mjd, geo_pos, geo_vel)
     return geo_pos, geo_vel, hp, hv
 
 
@@ -127,7 +124,8 @@ class ObserverCache(NamedTuple):
     heliocentric in equatorial J2000.
 
     The tensors hold ``nb`` rows, ``n`` real ones padded to a power of two
-    as the JAX package pads them (padded rows repeat the first epoch).
+    as the JAX package pads them (padded rows repeat the first epoch); the
+    unpadded views are properties.
     """
 
     n: int  # real observation count
@@ -137,13 +135,30 @@ class ObserverCache(NamedTuple):
     helio_pos_pad: torch.Tensor  # (nb, 3) AU
     helio_vel_pad: torch.Tensor  # (nb, 3) AU/day
 
+    @property
+    def geo_pos_ecl(self):
+        return self.geo_pos_pad[: self.n]
+
+    @property
+    def geo_vel_ecl(self):
+        return self.geo_vel_pad[: self.n]
+
+    @property
+    def helio_pos_equ(self):
+        return self.helio_pos_pad[: self.n]
+
+    @property
+    def helio_vel_equ(self):
+        return self.helio_vel_pad[: self.n]
+
     @classmethod
-    def build(
-        cls, dataset, ephem, ut1: Ut1Provider = None, device=None,
-    ):
-        """Build from an ObsDataset + ephemeris on ``device`` (default CPU).
-        UT1 table interpolation stays host-side."""
-        device = torch.device("cpu" if device is None else device)
+    def build(cls, dataset, ephem, ut1: Ut1Provider = None, cache_velocity: bool = True, device=None):
+        """Build from an ObsDataset + ephemeris: the JAX parameters in the
+        JAX order, then ``device`` (None: the card when one is present).
+        ``cache_velocity=False`` zeroes the geocentric observer velocity, so
+        the heliocentric velocity is the Earth's.  UT1 table interpolation
+        stays host-side."""
+        device = resolve_device(device)
         if ut1 is None:
             ut1 = Ut1Provider()
         if len(dataset.mjd_tt) == 0:
@@ -170,6 +185,6 @@ class ObserverCache(NamedTuple):
             torch.as_tensor(tut, **f64),
             torch.as_tensor(fixed_pos, **f64)[oi_t],
             torch.as_tensor(fixed_vel, **f64)[oi_t],
-            t0, gran, ephem, n_gran,
+            t0, gran, ephem, cache_velocity, n_gran,
         )
         return cls(n, np.asarray(dataset.mjd_tt), geo_pos, geo_vel, hp, hv)

@@ -43,3 +43,12 @@ def helio_velocity(ephem, mjd_tt, geo_vel_ecl):
     """Heliocentric observer velocity, equatorial mean J2000 (AU/day)."""
     _, earth_vel = ephem.earth_ephemeris(mjd_tt, velocity=True)
     return earth_vel + _rotate_ecl_to_equ(geo_vel_ecl)
+
+
+def helio_state(ephem, mjd_tt, geo_pos_ecl, geo_vel_ecl):
+    """Heliocentric observer position and velocity from one Earth-ephemeris
+    evaluation: bitwise :func:`helio_position` and :func:`helio_velocity`
+    (the JAX package calls both in one jitted program, where XLA merges
+    their identical table lookups)."""
+    earth_pos, earth_vel = ephem.earth_ephemeris(mjd_tt, velocity=True)
+    return earth_pos + _rotate_ecl_to_equ(geo_pos_ecl), earth_vel + _rotate_ecl_to_equ(geo_vel_ecl)

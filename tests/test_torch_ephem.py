@@ -80,6 +80,23 @@ def test_interpolate_body_clamps_outside_coverage(eph_pair):
     np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0, atol=2 * VEL_ATOL)
 
 
+@pytest.mark.parametrize("body", [Body.EMB, Body.MOON])
+@pytest.mark.parametrize("n", [300, 37])
+def test_plain_version_matches_the_pallas_kernel(eph_pair, body, n):
+    """``interpolate_body_plain`` against ``interpolate_body_pallas(...,
+    interpret=True)`` (tests/test_ephem.py:337-355), time-sorted epochs as
+    the fitting path gives them."""
+    from outfit_tpu.ephem.pallas_kernel import interpolate_body_pallas
+
+    ej, et = eph_pair
+    mjd = np.linspace(56010.0, 57990.0 if n == 300 else 56100.0, n)
+    pj, vj = interpolate_body_pallas(ej.tables[body], jnp.asarray(mjd), interpret=True)
+    pt, vt = interpolate_body_plain(et.tables[body], torch.as_tensor(mjd))
+    assert pt.shape == (n, 3) and vt.shape == (n, 3)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=POS_ATOL)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0, atol=VEL_ATOL)
+
+
 @pytest.mark.parametrize("velocity", [True, False])
 def test_earth_ephemeris_matches_jax(eph_pair, velocity):
     ej, et = eph_pair

@@ -97,7 +97,142 @@ def test_frame_kernel_matches_plain(cuda, n):
     np.testing.assert_allclose(e.cpu().numpy(), e0.cpu().numpy(), rtol=0, atol=1e-15)
 
 
-@pytest.mark.parametrize("bad", ["float32", "noncontiguous", "too_many_coeffs", "wrong_channels"])
+#: queries of the kernel's tile (kTile in outfit_tpu_torch/csrc/chebyshev.cuh)
+TILE = 128
+#: query orders and sizes: one row to one row per query in a tile, more
+#: distinct rows than one round of shared memory holds, ragged last tiles,
+#: epochs clamped to the table's ends
+ORDERS = ["path", "shuffled", "one_granule", "own_granule", "many_rows", "n1", "n37",
+          "tile_minus_1", "tile_plus_1", "clamped"]
+
+
+def _order_epochs(order, t0, gran, n_gran, seed=21):
+    """Epochs over a table of ``n_gran`` granules from ``t0``, in the named
+    order: ``path`` 32 time-sorted trajectories of 128 epochs over 40 days,
+    ``shuffled`` the same permuted, ``one_granule`` 4096 epochs in one,
+    ``own_granule`` each epoch in a granule of its own (within a tile),
+    ``many_rows`` 150 granules over every 150 epochs (at least 120 distinct
+    rows a tile, more than one round holds), ``n*`` / ``tile_*`` random
+    epochs at those counts, ``clamped`` epochs up to a tenth of a granule
+    outside coverage on both sides among epochs inside."""
+    rng = np.random.default_rng(seed)
+    span = n_gran * gran
+    if order in ("path", "shuffled"):
+        start = rng.uniform(t0, t0 + span - 40.0, 32)
+        q = np.concatenate([s + np.sort(rng.uniform(0.0, 40.0, 128)) for s in start])
+        return q if order == "path" else rng.permutation(q)
+    if order == "one_granule":
+        return t0 + (n_gran // 2 + rng.uniform(0.05, 0.95, 4096)) * gran
+    if order in ("own_granule", "many_rows"):
+        j = np.arange(4096)
+        k = TILE if order == "own_granule" else 150
+        g = j % k * n_gran // k
+        return t0 + (g + rng.uniform(0.05, 0.95, 4096)) * gran
+    if order == "clamped":
+        out = np.concatenate([t0 - rng.uniform(0, 0.1, 100) * gran, t0 + span + rng.uniform(0, 0.1, 100) * gran])
+        return rng.permutation(np.concatenate([out, rng.uniform(t0, t0 + span, 300)]))
+    n = {"n1": 1, "n37": 37, "tile_minus_1": TILE - 1, "tile_plus_1": TILE + 1}[order]
+    return rng.uniform(t0, t0 + span, n)
+
+
+def _body_against_plain(table, mjd_np, cuda):
+    mjd = torch.as_tensor(mjd_np, device=cuda)
+    before = chebyshev_cuda.launches["body"]
+    p, v = interpolate_body(table, mjd)
+    p0, v0 = interpolate_body_plain(table, mjd)
+    torch.cuda.synchronize()
+    assert chebyshev_cuda.launches["body"] == before + 1
+    assert p.shape == v.shape == (len(mjd_np), 3)
+    np.testing.assert_allclose(p.cpu().numpy(), p0.cpu().numpy(), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(v.cpu().numpy(), v0.cpu().numpy(), rtol=0, atol=1e-16)
+
+
+def _frame_against_plain(coeffs, mjd_np, t0, gran, cuda):
+    mjd = torch.as_tensor(mjd_np, device=cuda)
+    before = chebyshev_cuda.launches["frame"]
+    m, e = _frame_interp(coeffs, mjd, t0, gran)
+    m0, e0 = _frame_interp_plain(coeffs, mjd, t0, gran)
+    torch.cuda.synchronize()
+    assert chebyshev_cuda.launches["frame"] == before + 1
+    assert m.shape == (len(mjd_np), 3, 3) and e.shape == (len(mjd_np),)
+    np.testing.assert_allclose(m.cpu().numpy(), m0.cpu().numpy(), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(e.cpu().numpy(), e0.cpu().numpy(), rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_body_kernel_matches_plain_in_every_order(eph, cuda, order):
+    """The EMB table (500 granules of 16 days, 14 coefficients)."""
+    table = eph.to(cuda).tables[Body.EMB]
+    n_gran = table.coeffs.shape[0]
+    _body_against_plain(table, _order_epochs(order, table.t0, table.granule_days, n_gran), cuda)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_frame_kernel_matches_plain_in_every_order(cuda, order):
+    """A frame table of 512 granules of 8 days (14 coefficients)."""
+    n_gran, gran, t0 = frame_granules(np.array([57000.0, 57000.0 + 8.0 * 512]))
+    coeffs = _frame_table(t0, gran, n_gran, cuda)
+    _frame_against_plain(coeffs, _order_epochs(order, t0, gran, n_gran), t0, gran, cuda)
+
+
+#: the analytic tables' coefficient counts and the launcher's two ends
+N_COEFFS = [2, 8, 10, 12, 13, 14, 32]
+
+
+def _unit_table(n_chan, n_coeff, scale, seed):
+    """A (256, n_chan, n_coeff) table of decaying random coefficients,
+    values of order ``scale`` (below 1, where the bars of 1e-15 and 1e-16
+    hold a few ulps of summation order)."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0.0, 1.0, (256, n_chan, n_coeff)) * 0.3 ** np.arange(n_coeff) * scale
+    return torch.as_tensor(c)
+
+
+@pytest.mark.parametrize("n_coeff", N_COEFFS)
+def test_body_kernel_matches_plain_at_every_coefficient_count(eph, cuda, n_coeff):
+    """The analytic body with that count (an outer planet scaled down to
+    1 AU, where the JAX bar applies), or a random table at the launcher's
+    ends."""
+    from outfit_tpu_torch.ephem.chebyshev import BodyTable
+
+    bodies = [b for b, t in eph.tables.items() if t.coeffs.shape[2] == n_coeff]
+    if bodies:
+        src = eph.tables[bodies[0]]
+        coeffs = src.coeffs / max(1.0, float(src.coeffs[:, :, 0].abs().max()))
+        table = BodyTable(src.t0, src.granule_days, coeffs.contiguous().to(cuda))
+    else:
+        table = BodyTable(57000.0, 16.0, _unit_table(3, n_coeff, 0.1, n_coeff).to(cuda))
+    n_gran = table.coeffs.shape[0]
+    for order in ("path", "own_granule"):
+        _body_against_plain(table, _order_epochs(order, table.t0, table.granule_days, n_gran), cuda)
+
+
+@pytest.mark.parametrize("n_coeff", N_COEFFS)
+def test_frame_kernel_matches_plain_at_every_coefficient_count(cuda, n_coeff):
+    coeffs = _unit_table(10, n_coeff, 0.1, 100 + n_coeff).to(cuda)
+    for order in ("path", "own_granule"):
+        _frame_against_plain(coeffs, _order_epochs(order, 57000.0, 8.0, 256), 57000.0, 8.0, cuda)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_odd_width_rows_at_either_alignment(eph, cuda, offset):
+    """The Moon's 3 x 13 rows (312 bytes) start 16-byte aligned or 8 bytes
+    past; the table itself may too.  Each row is copied as its aligned part
+    and one element alone, from either end."""
+    from outfit_tpu_torch.ephem.chebyshev import BodyTable
+
+    src = eph.tables[Body.MOON]
+    assert src.coeffs.shape[1:] == (3, 13)
+    flat = torch.zeros(src.coeffs.numel() + 1, dtype=torch.float64, device=cuda)
+    coeffs = flat[offset:offset + src.coeffs.numel()].view(src.coeffs.shape)
+    coeffs.copy_(src.coeffs)
+    assert coeffs.data_ptr() % 16 == 8 * offset
+    table = BodyTable(src.t0, src.granule_days, coeffs)
+    for order in ("path", "own_granule", "many_rows"):
+        _body_against_plain(table, _order_epochs(order, table.t0, table.granule_days, coeffs.shape[0]), cuda)
+
+
+@pytest.mark.parametrize("bad", ["float32", "noncontiguous", "too_many_coeffs", "wrong_channels", "misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
     coeffs = torch.zeros((4, 3, 14), dtype=torch.float64, device=cuda)
     mjd = torch.zeros(8, dtype=torch.float64, device=cuda)
@@ -105,6 +240,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
         mjd = mjd.float()
     elif bad == "noncontiguous":
         mjd = torch.zeros(16, dtype=torch.float64, device=cuda)[::2]
+    elif bad == "misaligned":  # contiguous, 8 bytes past a 16-byte boundary
+        coeffs = torch.zeros(4 * 3 * 14 + 1, dtype=torch.float64, device=cuda)[1:].view(4, 3, 14)
     elif bad == "too_many_coeffs":
         coeffs = torch.zeros((4, 3, 40), dtype=torch.float64, device=cuda)
     else:

@@ -121,3 +121,80 @@ def test_observer_cache_matches_jax(eph_pair, name):
     # padded rows repeat the first epoch, so they hold its state
     if ct.helio_pos_pad.shape[0] > ct.n:
         assert torch.equal(ct.helio_pos_pad[ct.n], ct.helio_pos_pad[0])
+
+
+def _assert_cache_close(ct, cj):
+    for field in ("helio_pos_pad", "helio_vel_pad"):
+        np.testing.assert_allclose(
+            getattr(ct, field).numpy(), np.asarray(getattr(cj, field)), rtol=0, atol=HELIO_ATOL, err_msg=field
+        )
+    for field in ("geo_pos_pad", "geo_vel_pad"):
+        np.testing.assert_allclose(
+            getattr(ct, field).numpy(), np.asarray(getattr(cj, field)), rtol=0, atol=1e-16, err_msg=field
+        )
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_observer_cache_without_velocity_matches_jax(eph_pair, name):
+    """``cache_velocity=False`` in the JAX position (after ``ut1``): the
+    geocentric velocity is zero, the heliocentric velocity the Earth's."""
+    ej, et = eph_pair
+    dj, dt = _pair(name)
+    cj = JObserverCache.build(dj, ej, None, False)
+    ct = ObserverCache.build(dt, et, None, False, device="cpu")
+    assert not ct.geo_vel_pad.any()
+    _assert_cache_close(ct, cj)
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_observer_cache_unpadded_views_match_jax(eph_pair, name):
+    ej, et = eph_pair
+    dj, dt = _pair(name)
+    cj = JObserverCache.build(dj, ej)
+    ct = ObserverCache.build(dt, et, device="cpu")
+    for view, atol in (("geo_pos_ecl", 1e-16), ("geo_vel_ecl", 1e-16), ("helio_pos_equ", HELIO_ATOL),
+                       ("helio_vel_equ", HELIO_ATOL)):
+        got, want = getattr(ct, view), np.asarray(getattr(cj, view))
+        assert got.shape == want.shape == (ct.n, 3), view
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol, err_msg=view)
+        assert torch.equal(got, getattr(ct, view.rsplit("_", 1)[0] + "_pad")[: ct.n])
+
+
+def test_observer_cache_device_defaults_through_resolve_device(eph_pair, monkeypatch):
+    from outfit_tpu_torch.observer import cache as cache_mod
+
+    asked = []
+
+    def resolve(device=None):
+        asked.append(device)
+        return torch.device("cpu")
+
+    monkeypatch.setattr(cache_mod, "resolve_device", resolve)
+    _, dt = _pair("8467")
+    ct = ObserverCache.build(dt, eph_pair[1])
+    assert asked == [None] and ct.helio_pos_pad.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["2015AB", "33803"])
+def test_observer_cache_evaluates_the_earth_once(eph_pair, name, monkeypatch):
+    """One Earth-ephemeris evaluation per build (EMB and Moon tables, one
+    lookup each), bitwise equal to helio_position and helio_velocity."""
+    from outfit_tpu_torch.ephem import api
+    from outfit_tpu_torch.observer.geometry import helio_position, helio_velocity
+
+    _, et = eph_pair
+    _, dt = _pair(name)
+    looked_up = []
+    interp = api.interpolate_body
+
+    def counting(table, mjd, velocity=True):
+        looked_up.append(table)
+        return interp(table, mjd, velocity)
+
+    monkeypatch.setattr(api, "interpolate_body", counting)
+    ct = ObserverCache.build(dt, et, device="cpu")
+    assert len(looked_up) == 2
+    nb = ct.helio_pos_pad.shape[0]
+    mjd = torch.as_tensor(np.concatenate([dt.mjd_tt, np.full(nb - ct.n, dt.mjd_tt[0])]))
+    assert torch.equal(ct.helio_pos_pad, helio_position(et, mjd, ct.geo_pos_pad))
+    assert torch.equal(ct.helio_vel_pad, helio_velocity(et, mjd, ct.geo_vel_pad))
