@@ -18,8 +18,12 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    the fitting path below: the observer cache's query epochs of phases 4
    and 6 (309,892 and 98,304 epochs, padded to 524,288 and 131,072), in
    path order and shuffled, and 37 of them, through the EMB and Moon tables
-   and the dataset's 10-channel frame table; max deviation against the JAX
-   package's bar for its Pallas kernel, the kernel's device time (20
+   and the dataset's 10-channel frame table; then through every planet table
+   the N-body path queries (Mercury to Pluto: 8, 10, 12 and 14
+   coefficients) at that path's shapes, 4,096 and 98,304 stage epochs in
+   lane order; max deviation against the JAX
+   package's bar for its Pallas kernel (times the table's largest distance
+   where that is over 1 AU), the kernel's device time (20
    launches queued behind a sleep kernel, between CUDA events), its bound
    (bytes over the H100's 3.35 TB/s or float64 operations over 34 TFLOP/s,
    the larger) and their ratio, and at phase 4's shape one call of the
@@ -70,7 +74,53 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    every other row its lean result, and ``fit_lsq_escalating`` on the
    first dataset must equal its stages called by hand, row by row.
 
-Phases 6 to 10 each run one cold and one warm pass (results must agree),
+11. N-body propagation at the JAX bench's size (``bench.py:684-739``): 4,096
+   lanes from ``default_rng(3)`` (a = U[1.2, 3.5], e = U[0, 0.35], epoch
+   57000, t1 = 57000 + U[25, 30] d), ``NBodyConfig.with_planets()`` with the
+   42-state STM, through ``outfit_tpu_torch.propagate_nbody`` on the card,
+   cold and warm, with frozen and then moving perturbers: every lane status
+   0; Sun-only N-body equal to ``propagate_twobody`` (1e-11 AU, 1e-12
+   AU/day); frozen and moving within 5e-10 AU; card against CPU on 64 lanes
+   at 1e-10 AU; exactly 9 kernel launches per frozen call and 9 x 13 x trips
+   with moving perturbers; accepted steps, trips, launches, host syncs,
+   device busy share, the kernel's share, warm wall and steps/s;
+12. ephemeris generation end to end: phase 6's float64 results (8,192
+   trajectories; failed fits ride along as row errors) through
+   ``outfit_tpu_torch.compute_ephemerides_batch`` with two observers (the
+   geocenter and station 809) x 32 daily epochs (57004 to 57035, inside the
+   fits' window), 64 pairs and 524,288
+   entries, ``Combined`` output, at first- and second-order aberration, then
+   on phase 9's ``LsqTable``: ok count = live rows x 64, angles in range,
+   the orders within 1e-6 rad on the sky (a right-ascension difference
+   counts times cos(dec)) on the orbits the correction converged onto their
+   observations (normalised RMS <= 2), 8 rows equal to ``compute_ephemeris`` per
+   orbit at 1e-13, card against CPU on 64 rows at 1e-12 rad, 2 kernel
+   launches per call, the N-body propagator on 512 rows within 1e-5 rad of
+   two-body on those orbits, entries/s cold and warm;
+13. the correction with the N-body propagator: ``fit_lsq(synth, eph, lean,
+   DifferentialCorrectionConfig(propagator=PropagatorKind.n_body(
+   NBodyConfig.with_planets()), divergence_grace_iterations=2,
+   max_newton_iterations=4), initial_orbits=<phase 6's converged orbits>,
+   device="cuda")`` on the synthetic 8192 x 12 (about 92,000 lanes of 42
+   states; the rows that fell back to their IOD orbit in phase 6 are not
+   seeded: those orbits reach e = 0.99, the integrator needs hundreds of
+   steps through their perihelia, and every loop trip advances all lanes):
+   converged fraction within 0.02 of phase 6's; elements against the
+   two-body fit in its 1-sigma uncertainties (median <= 0.5, 99th percentile
+   <= 5: the planets' pull over 40 days is of the size of the astrometric
+   noise, so it moves a 12-observation fit inside its flat chi-squared
+   valley), and the Sun-only N-body correction within 1e-4 relative of the
+   two-body correction from the same orbits; card against CPU on 64 rows,
+   2 + 9 per propagate body launches and 1 frame launch; trips per Newton
+   step, launches, syncs, wall.  Then one fit of the first 2,048
+   trajectories from every ok orbit of phase 6, the IOD fallbacks among
+   them (what an unseeded N-body fit hands its correction; at all 8,192 it
+   takes over 40 s a fit): the same launch formula, the integrator's step
+   budget bounding the trips, the converged fraction within 0.02 of
+   phase 6's on the same rows, and its trips per Newton step beside the
+   converged seeds'.
+
+Phases 11 to 13 print the card's peak memory.  Phases 6 to 10 each run one cold and one warm pass (results must agree),
 print the outcome histogram and require, in the pass the counts were reset
 for, two body launches and one frame launch per observer cache build (one
 per dataset fit, and one for the escalating flush's refit); phases 6 and 7
@@ -79,13 +129,15 @@ of a warm fit, profile a warm fit split into its IOD and correction
 stages, and hold card against CPU on the first 64 trajectories.
 
 The line before the last is ``{"kernels": [...]}``: per site the launches
-summed over phases 4 and 6 to 10, the largest deviation of phase 3, and at
+summed over phases 4 and 6 to 13, the largest deviation of phase 3 (AU at
+the body site: an ulp or two of the outer planets' 30 AU), and at
 phase 4's shape the device time (``device_ms``), the bound (``bound_ms``,
 ``bound_by``), one call of the wrapper (``ms``) and of the plain version
 (``plain_ms``), and ``library_ms`` null (no single PyTorch call computes
 the function); the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -93,6 +145,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEEDS = os.path.join(HERE, "tests", "data", "iod_seeds_analytic.json")
@@ -116,6 +169,18 @@ IOD_RTOL = 1e-8
 POS_ATOL, VEL_ATOL = 1e-15, 1e-16
 #: frame-table entries: rotation-matrix entries and the equation of the equinoxes
 FRAME_ATOL = 1e-15
+#: phase 11: the JAX bench's N-body lanes, and the orbit of the JAX suite's
+#: N-body tests (Keplerian: epoch, a, e, i, node, argument, mean anomaly)
+N_NBODY = 4096
+JAX_TEST_ORBIT = (57000.0, 2.3, 0.15, 0.12, 1.1, 0.7, 0.3)
+#: phase 13: how far the fit with the planets may lie from the two-body fit,
+#: in that fit's 1-sigma uncertainties (median, 99th percentile), and the
+#: most rows whose outcome may differ between the Sun-only N-body correction
+#: and the two-body correction
+NBODY_FIT_SIGMA, NBODY_FIT_CHANGED = (0.5, 5.0), 8
+#: phase 13: the first trajectories that are also fitted from every ok orbit
+#: of phase 6, the IOD-fallback orbits included
+N_NBODY_FIT_ALL = 2048
 KERNEL_SRC = "outfit_tpu_torch/csrc/chebyshev.cuh"
 REPLACES = "outfit_tpu/ephem/pallas_kernel.py:123"
 #: an H100 SXM's device-memory rate and float64 rate outside the tensor
@@ -585,9 +650,10 @@ def count_syncs(fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def _profiled(fn, dev):
-    """(wall s, device busy s, kernels and copies, top events) of one ``fn()``
-    under torch.profiler."""
+def _profiled(fn, dev, n_top=6):
+    """(wall s, device busy s, kernels and copies, the ``n_top`` events with
+    the most device time, or all of them) of one ``fn()`` under
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -600,7 +666,7 @@ def _profiled(fn, dev):
         wall = time.perf_counter() - t
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:n_top]
     return out, wall, busy, sum(e.count for e in events), top
 
 
@@ -741,7 +807,7 @@ def phase_unseeded(dev, eph, ds, params, cfg, seed, tag, profile=True):
     if profile:
         profile_stages(dev, eph, ds, params, cfg, seed)
         cross_check_unseeded(dev, eph, ds, params, cfg, seed)
-    return launches, warm, summ
+    return launches, warm, summ, res
 
 
 def orbit_deviation(a, b):
@@ -844,7 +910,7 @@ def phase_mixed(dev, eph, ds, params, cfg, seed, f64_warm, f64_summ):
     from outfit_tpu_torch import fit_lsq
 
     tag = "mixed synthetic 8192 x 12 IOD+LSQ"
-    launches, warm, summ = phase_unseeded(dev, eph, ds, params, cfg, seed, tag, profile=False)
+    launches, warm, summ, _ = phase_unseeded(dev, eph, ds, params, cfg, seed, tag, profile=False)
     _log(f"{tag}: converged fraction mixed {summ['converged'] / summ['total']!r} vs float64 (phase 6) "
          f"{f64_summ['converged'] / f64_summ['total']!r}; warm wall mixed {warm!r} s vs float64 {f64_warm!r} s")
     profile_stages(dev, eph, ds, params, cfg, seed)
@@ -914,7 +980,8 @@ def _timed_stream(tag, run, datasets, launches, dev, fits):
 
 def phase_stream(dev, eph, dataset_seeds, params, cfg, seed):
     """Phase 9: fit_lsq_stream, default (cold and warm) and
-    slim/table/minimal, against sequential fits of the same datasets."""
+    slim/table/minimal, against sequential fits of the same datasets.
+    Returns (launches, the first dataset's slim ``LsqTable``)."""
     import numpy as np
 
     from outfit_tpu_torch import fit_lsq, fit_lsq_stream
@@ -952,7 +1019,7 @@ def phase_stream(dev, eph, dataset_seeds, params, cfg, seed):
         for tid, ref_r in r.items():
             _slim_matches(res.result(tid), ref_r, tid)
     _log(f"stream slim+table+minimal: {n} fits in {wall!r} s ({n / wall!r} fits/s); kernel launches {got}")
-    return launches
+    return launches, out[0][1]
 
 
 def phase_escalating(dev, eph, seeds, stages, seed):
@@ -1037,6 +1104,527 @@ def phase_escalating(dev, eph, seeds, stages, seed):
     return launches
 
 
+def planet_queries(synth):
+    """The N-body path's query shapes: 4,096 stage epochs of phase 11's
+    lanes and 98,304 of phase 13's (trajectory, observation) lanes, each a
+    mid-step stage time ``t0 + 0.5 (t1 - t0)`` in lane order (unsorted
+    across lanes, inside one window)."""
+    _, t1 = nbody_lanes(N_NBODY, "cpu")
+    return {N_NBODY: 57000.0 + 0.5 * (t1.numpy() - 57000.0), len(synth.mjd_tt): 57000.0 + 0.5 * (synth.mjd_tt - 57000.0)}
+
+
+def phase_kernel_check_planets(dev, eph, synth):
+    """Phase 3, extended: K1 against its plain version through every table
+    ``NBodyConfig.with_planets()`` queries, at the N-body path's own query
+    shapes (:func:`planet_queries`).  The bar is the JAX package's (1e-15
+    AU, 1e-16 AU/day) times max(1, the largest distance in AU among the
+    plain version's positions): an ulp of Neptune's 30 AU is 3.6e-15 AU.
+    Prints per table the deviation, device time, bound and share.  Returns
+    the largest position deviation (AU)."""
+    import torch
+
+    from outfit_tpu_torch.ephem.bodies import Body
+    from outfit_tpu_torch.ephem.chebyshev import interpolate_body, interpolate_body_plain
+    from outfit_tpu_torch.propagator import NBodyConfig
+
+    eph_d = eph.to(dev)
+    worst = 0.0
+    for n, q in planet_queries(synth).items():
+        mjd = torch.as_tensor(q, dtype=torch.float64, device=dev)
+        for b in NBodyConfig.with_planets().perturbing_bodies[1:]:
+            table = eph_d.tables[Body(b)]
+            (p, v), (p0, v0) = interpolate_body(table, mjd), interpolate_body_plain(table, mjd)
+            scale = max(1.0, torch.sqrt(torch.sum(p0 * p0, -1)).max().item())
+            dp, dv = (p - p0).abs().max().item(), (v - v0).abs().max().item()
+            if not (dp <= POS_ATOL * scale and dv <= VEL_ATOL * scale):
+                raise AssertionError(f"K1 body {Body(b).name} N={n}: deviates from its plain version by {dp!r} AU, "
+                                     f"{dv!r} AU/day at scale {scale!r}")
+            worst = max(worst, dp)
+            ms = device_ms(lambda: interpolate_body(table, mjd))
+            bound, by = k1_bound_ms(n, tuple(table.coeffs.shape), True)
+            _log(f"K1 body {Body(b).name} C={table.coeffs.shape[2]} G={table.coeffs.shape[0]} N={n}: device "
+                 f"{1e3 * ms!r} us, bound {1e3 * bound!r} us ({by}), share {bound / ms!r}; max|d| {dp!r} AU, "
+                 f"{dv!r} AU/day (largest distance {scale!r} AU)")
+    return worst
+
+
+class counted:
+    """Counts the calls of ``module.name`` inside the ``with`` block, and
+    the host seconds spent in them."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls, self.seconds = module, name, 0, 0.0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapper(*a, **k):
+            self.calls += 1
+            t = time.perf_counter()
+            try:
+                return self.orig(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _timed(fn, dev):
+    t = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t
+
+
+def _tally(total):
+    """Add the kernel's launch counts since the last reset to ``total`` and
+    return them."""
+    from outfit_tpu_torch.ephem import chebyshev_cuda
+
+    got = dict(chebyshev_cuda.launches)
+    for site in total:
+        total[site] += got[site]
+    return got
+
+
+def _peak_gb():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def nbody_lanes(n, dev):
+    """bench.py:684-739's lanes: random bound orbits at epoch 57000 and
+    their arcs of 25 to 30 days, in the bench's order of draws."""
+    import numpy as np
+    import torch
+
+    from outfit_tpu_torch.elements.types import EquinoctialElements
+
+    rng = np.random.default_rng(3)
+    a = rng.uniform(1.2, 3.5, n)
+    e = rng.uniform(0.0, 0.35, n)
+    pom = rng.uniform(0, 2 * np.pi, n)
+    om = rng.uniform(0, 2 * np.pi, n)
+    tani2 = np.tan(rng.uniform(0.0, 0.3, n))
+    cols = [np.full(n, 57000.0), a, e * np.sin(pom), e * np.cos(pom), tani2 * np.sin(om), tani2 * np.cos(om),
+            rng.uniform(0, 2 * np.pi, n)]
+    t1 = 57000.0 + rng.uniform(25.0, 30.0, n)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return EquinoctialElements(*(torch.as_tensor(c, **f64) for c in cols)), torch.as_tensor(t1, **f64)
+
+
+def phase_nbody(dev, eph):
+    """Phase 11: N-body propagation of 4,096 lanes over 25-30 days."""
+    import numpy as np
+    import torch
+
+    from outfit_tpu_torch import NBodyConfig, Ut1Provider, dop853_integrate, propagate_nbody
+    from outfit_tpu_torch.elements.twobody import propagate_twobody
+    from outfit_tpu_torch.elements.types import KeplerianElements, keplerian_to_equinoctial
+    from outfit_tpu_torch.ephem import chebyshev_cuda
+    from outfit_tpu_torch.observer.geometry import gast
+    from outfit_tpu_torch.propagator import nbody
+
+    eq, t1 = nbody_lanes(N_NBODY, dev)
+    eph_cpu, eph = eph, eph.to(dev)  # the tables resident on the card, as the lanes are
+    planets = NBodyConfig.with_planets()
+    launches = {"body": 0, "frame": 0}
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for mode, cfg in (("frozen", planets),
+                      ("moving", NBodyConfig(perturbing_bodies=planets.perturbing_bodies, frozen_perturbers=False))):
+        run = lambda: propagate_nbody(eq, t1, eph, cfg)
+        chebyshev_cuda.reset_launch_counts()
+        # thirteen right-hand sides per loop trip
+        with counted(nbody, "_acceleration_and_gradient") as rhs:
+            res, cold = _timed(run, dev)
+        got = _tally(launches)
+        trips, rem = divmod(rhs.calls, 13)
+        want = {"body": 9 if mode == "frozen" else 9 * 13 * trips, "frame": 0}
+        if rem or got != want:
+            raise AssertionError(f"N-body {mode}: {rhs.calls} right-hand sides, kernel launches {got}, expected {want} "
+                                 f"(9 planet tables per perturber evaluation: one at t0, or 13 per trip)")
+        chebyshev_cuda.reset_launch_counts()
+        # the host's time inside the kernel's wrapper (its launches do not
+        # wait for the card)
+        with counted(chebyshev_cuda, "evaluate") as k1:
+            res_w, warm = _timed(run, dev)
+        _tally(launches)
+        if not (res.status == 0).all():
+            raise AssertionError(f"N-body {mode}: {int((res.status != 0).sum())} lanes failed")
+        for f in res._fields:
+            if not torch.equal(getattr(res, f), getattr(res_w, f)):
+                raise AssertionError(f"N-body {mode}: cold and warm runs differ in {f}")
+        steps = int(res.n_steps.sum())
+        _, wall, busy, n_launch, top = _profiled(run, dev, n_top=None)
+        k1_us = sum(e.self_device_time_total for e in top if "chebyshev" in e.key)
+        syncs = count_syncs(run)
+        _log(f"N-body {mode}: {N_NBODY} lanes, {steps} accepted steps (per lane {int(res.n_steps.min())}-"
+             f"{int(res.n_steps.max())}), {trips} trips, kernel launches {got}; cold {cold!r} s, warm {warm!r} s, "
+             f"{steps / warm!r} accepted steps/s; profiled {wall!r} s, device busy {busy!r} s "
+             f"({100.0 * busy / wall:.1f} %), {n_launch} kernels and copies ({n_launch / trips:.0f} per trip), "
+             f"{syncs} host syncs; K1 device time {k1_us / 1e6!r} s ({100.0 * k1_us / 1e6 / max(busy, 1e-12):.1f} % of "
+             f"busy), host time in its wrapper {k1.seconds!r} s ({100.0 * k1.seconds / warm:.1f} % of the warm wall)")
+        for e in top[:6]:
+            _log(f"    {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+        out[mode] = res
+    # over two days the perturbers barely move: the JAX suite's bar (5e-10
+    # AU, tests/test_propagator.py::test_short_arc_matches_frozen) on its
+    # own main-belt orbit, and on the bench's lanes at the median (a lane
+    # that passes a planet feels the planet's two days of motion); over the
+    # 25 to 30 days they do move, which is what the moving mode is for
+    d30 = (out["frozen"].position - out["moving"].position).abs().max().item()
+    f64 = dict(dtype=torch.float64, device=dev)
+    belt = keplerian_to_equinoctial(KeplerianElements(*(torch.as_tensor(x, **f64) for x in JAX_TEST_ORBIT)))
+    chebyshev_cuda.reset_launch_counts()
+    d2 = []
+    for q in (belt, eq):
+        a, b = (propagate_nbody(q, 57002.0, eph, NBodyConfig(perturbing_bodies=planets.perturbing_bodies,
+                                                             frozen_perturbers=f)) for f in (True, False))
+        if not ((a.status == 0).all() and (b.status == 0).all()):
+            raise AssertionError("N-body: a 2-day arc failed")
+        d2.append((a.position - b.position).abs().amax(dim=-1).reshape(-1))
+    _tally(launches)
+    d, d_med, d_max = d2[0].item(), d2[1].median().item(), d2[1].max().item()
+    if not (d <= 5e-10 and d_med <= 5e-10):
+        raise AssertionError(f"N-body: frozen and moving perturbers differ by {d!r} AU on the main-belt orbit, "
+                             f"{d_med!r} AU at the lanes' median, over 2 days (bar 5e-10)")
+    sun = propagate_nbody(eq, t1, eph, NBodyConfig())
+    tb = propagate_twobody(eq, 57000.0, t1)
+    dp, dv = (sun.position - tb.position).abs().max().item(), (sun.velocity - tb.velocity).abs().max().item()
+    dj = (sun.dpos_delem - tb.dpos_delem).abs().max().item()
+    if not (dp <= 1e-11 and dv <= 1e-12 and (sun.status == 0).all()):
+        raise AssertionError(f"Sun-only N-body against two-body: {dp!r} AU, {dv!r} AU/day")
+    # host inputs (a fit result carries its elements as CPU tensors, a
+    # catalogue as numpy arrays) with a host ephemeris and no device named:
+    # on the card all the same
+    eq_np = type(eq)(*(f[:N_CHECK].cpu().numpy() for f in eq))
+    chebyshev_cuda.reset_launch_counts()
+    from_np = propagate_nbody(eq_np, t1[:N_CHECK].cpu(), eph_cpu, planets)
+    d_np = (from_np.position - out["frozen"].position[:N_CHECK]).abs().max().item()
+    decay = dop853_integrate(lambda t, y: -y, np.ones((N_CHECK, 1)), 0.0, 1.0)
+    if not (from_np.position.is_cuda and _tally(launches) == {"body": 9, "frame": 0} and d_np <= 1e-12
+            and decay.y.is_cuda and gast(np.array([57000.5]), Ut1Provider()).is_cuda
+            and abs(decay.y[0, 0].item() - np.exp(-1.0)) <= 1e-11):
+        raise AssertionError(f"numpy inputs with no device named did not run on the card ({d_np!r} AU from the lanes' batch)")
+    worst = {}
+    eq_c, t1_c = nbody_lanes(N_NBODY, "cpu")
+    eq_c = type(eq_c)(*(f[:N_CHECK] for f in eq_c))
+    for mode, res in out.items():
+        cfg = NBodyConfig(perturbing_bodies=planets.perturbing_bodies, frozen_perturbers=mode == "frozen")
+        ref = propagate_nbody(eq_c, t1_c[:N_CHECK], eph_cpu, cfg, device="cpu")
+        worst[mode] = (res.position[:N_CHECK].cpu() - ref.position).abs().max().item()
+        dn = (res.n_steps[:N_CHECK].cpu() - ref.n_steps).abs().max().item()
+        if not (worst[mode] <= 1e-10 and (ref.status == 0).all() and dn <= 2):
+            raise AssertionError(f"N-body {mode} card vs CPU: {worst[mode]!r} AU, n_steps apart by {dn}")
+    _log(f"N-body: frozen vs moving over 2 days {d!r} AU on the JAX suite's main-belt orbit, lanes median {d_med!r}, "
+         f"max {d_max!r} AU ({d30!r} AU over the 25-30 days); Sun-only vs two-body {dp!r} AU, {dv!r} AU/day, partials {dj!r}; "
+         f"card vs CPU on {N_CHECK} lanes {worst}; peak memory {_peak_gb():.3f} GiB")
+    return launches
+
+
+def _wrapped(a, b):
+    """|a - b| of two angles, wrapped to [0, pi]."""
+    import numpy as np
+
+    return np.abs((a - b + np.pi) % (2 * np.pi) - np.pi)
+
+
+def _on_sky(a, b, ok):
+    """Largest separation (rad) of two tables' apparent positions over the
+    entries ``ok``, per axis on the sky: the right-ascension difference
+    times cos(dec) (near a pole a right ascension alone magnifies any
+    rounding by 1 / cos(dec)) and the declination difference."""
+    import numpy as np
+
+    return np.maximum(_wrapped(a.ra[ok], b.ra[ok]) * np.cos(b.dec[ok]), np.abs(a.dec[ok] - b.dec[ok]))
+
+
+def phase_ephemeris(dev, eph, results, table9):
+    """Phase 12: ephemeris generation end to end."""
+    import numpy as np
+    import torch
+
+    from outfit_tpu_torch import (
+        AberrationOrder, EphemerisConfig, EphemerisMode, EphemerisRequest, NBodyConfig, Observer, PropagatorKind,
+        compute_ephemerides_batch, compute_ephemeris, get_observatory,
+    )
+    from outfit_tpu_torch.elements.types import EquinoctialElements
+    from outfit_tpu_torch.ephem import chebyshev_cuda
+
+    def request(order=AberrationOrder.FIRST, propagator=PropagatorKind.two_body()):
+        # inside the fits' 40-day window: arcs the frozen perturbers serve
+        grid = EphemerisMode.range(57004.0, 57035.0, 1.0)
+        return (EphemerisRequest(EphemerisConfig(propagator=propagator, aberration=order))
+                .add(Observer.geocenter(), grid).add(get_observatory("809"), grid))
+
+    launches = {"body": 0, "frame": 0}
+    torch.cuda.reset_peak_memory_stats()
+    T, P = len(results), len(request())
+    assert P == 64
+
+    def batch(res, req, device=dev, body=2):
+        chebyshev_cuda.reset_launch_counts()
+        table, wall = _timed(lambda: compute_ephemerides_batch(res, req, eph, device=device), device)
+        got = _tally(launches) if torch.device(device).type == "cuda" else None
+        if got is not None and got != {"body": body, "frame": 0}:
+            raise AssertionError(f"ephemeris batch: kernel launches {got}, expected {body} at the body site")
+        return table, wall
+
+    def check(table, tag):
+        live = len(table) - len(table.row_errors)
+        if int(table.ok.sum()) != live * P or table.ok.shape != (len(table), P):
+            raise AssertionError(f"{tag}: {int(table.ok.sum())} ok entries, expected {live} live rows x {P}")
+        ok = table.ok
+        if not ((table.ra[ok] >= 0).all() and (table.ra[ok] < 2 * np.pi).all() and (np.abs(table.dec[ok]) <= np.pi / 2).all()
+                and all((getattr(table, f)[ok] >= 0).all() and (getattr(table, f)[ok] <= np.pi).all()
+                        for f in ("phase_angle", "solar_elongation"))
+                and all(np.isfinite(getattr(table, f)[ok]).all() for f in ("geocentric_distance", "radial_velocity",
+                                                                          "d_ra_dt", "d_dec_dt"))):
+            raise AssertionError(f"{tag}: an angle out of range or a value not finite")
+        return live
+
+    tables = {}
+    for name, req in (("first", request()), ("second", request(AberrationOrder.SECOND))):
+        tables[name], cold = batch(results, req)
+        _, warm = batch(results, req)
+        live = check(tables[name], name)
+        _log(f"ephemeris {name} order: {T} rows x {P} pairs = {T * P} entries, {live} live rows "
+             f"({len(tables[name].row_errors)} row errors), cold {cold!r} s ({T * P / cold!r} entries/s), warm {warm!r} s "
+             f"({T * P / warm!r} entries/s), 2 body launches per call")
+    first, second = tables["first"], tables["second"]
+    ok = first.ok
+    if not np.array_equal(first.ok, second.ok):
+        raise AssertionError("first and second order aberration: different ok entries")
+    sep12 = np.zeros(ok.shape)
+    sep12[ok] = _on_sky(first, second, ok)
+    row12 = sep12.max(axis=1)
+    # the bars on the physics hold for the orbits the correction converged
+    # onto their observations (normalised RMS <= 2); a row that fell back to
+    # its IOD orbit, or converged far from its observations, may carry any
+    # orbit the limits let through (a = 0.23 AU at e = 0.99, or one 0.015 AU
+    # from the Earth, among them)
+    fitted = np.array([results[t].ok and not results[t].fell_back_to_iod and results[t].normalised_rms <= 2.0
+                       for t in first.traj_ids])
+    d12 = float(row12[fitted].max())
+    over = np.flatnonzero(row12 > 1e-6)
+
+    def describe(i, what):
+        r = results[first.traj_ids[i]]
+        _log(f"    {first.traj_ids[i]}: {what}; a {float(r.equinoctial[0])!r}, e "
+             f"{float(np.hypot(r.equinoctial[1], r.equinoctial[2]))!r}, least distance "
+             f"{float(first.geocentric_distance[i][ok[i]].min())!r} AU, nRMS {r.normalised_rms!r}, "
+             f"fell back to the IOD orbit {r.fell_back_to_iod}")
+
+    for i in over[np.argsort(-row12[over])][:4]:
+        describe(i, f"aberration orders {float(row12[i])!r} rad apart")
+    if not 0 < d12 <= 1e-6:
+        raise AssertionError(f"first and second order aberration differ by {d12!r} rad on a fitted orbit")
+    _, wall, busy, n_launch, top = _profiled(lambda: compute_ephemerides_batch(results, request(), eph, device=dev), dev)
+    syncs = count_syncs(lambda: compute_ephemerides_batch(results, request(), eph, device=dev))
+    _log(f"  profiled warm first-order call: wall {wall!r} s, device busy {busy!r} s ({100.0 * busy / wall:.1f} %), "
+         f"{n_launch} kernels and copies, {syncs} host syncs; first vs second order on {int(fitted.sum())} fitted orbits at "
+         f"most {d12!r} rad, row median {float(np.median(row12[fitted]))!r}; over all live rows {float(row12.max())!r}, "
+         f"{len(over)} rows over 1e-6")
+    for e in top[:4]:
+        _log(f"    {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+
+    # phase 9's columnar table, taken column-wise
+    tab, cold = batch(table9, request())
+    _, warm = batch(table9, request())
+    live = check(tab, "LsqTable input")
+    _log(f"ephemeris from an LsqTable: {len(tab)} rows, {live} live, cold {cold!r} s, warm {warm!r} s "
+         f"({len(tab) * P / warm!r} entries/s)")
+
+    # per-orbit API on the card, 8 live rows
+    live_ids = [t for t in first.traj_ids if t not in first.row_errors]
+    worst = 0.0
+    for tid in live_ids[:8]:
+        r = results[tid]
+        eq = EquinoctialElements(*(torch.as_tensor(x, dtype=torch.float64) for x in (r.epoch, *r.equinoctial)))
+        chebyshev_cuda.reset_launch_counts()
+        per = compute_ephemeris(eq, request(), eph, device=dev)
+        if _tally(launches) != {"body": 2, "frame": 0}:
+            raise AssertionError("compute_ephemeris: expected 2 kernel launches at the body site")
+        row = first.result(tid)
+        for a, b in zip(per, row):
+            assert a.ok and b.ok and a.epoch == b.epoch, (tid, a.error, b.error)
+            va, vb = np.array([*a.value.position, *a.value.geometry]), np.array([*b.value.position, *b.value.geometry])
+            worst = max(worst, float(np.abs(va - vb).max()))
+    if not worst <= 1e-13:
+        raise AssertionError(f"batch against the per-orbit API: {worst!r} > 1e-13")
+
+    # card against CPU, 64 rows
+    head_res = {t: results[t] for t in first.traj_ids[:N_CHECK]}
+    cpu, _ = batch(head_res, request(), device="cpu")
+    assert np.array_equal(cpu.ok, first.ok[:N_CHECK])
+    okc = cpu.ok
+    head_tab = types.SimpleNamespace(ra=first.ra[:N_CHECK], dec=first.dec[:N_CHECK])
+    dev_cpu = max(float(_on_sky(head_tab, cpu, okc).max()),
+                  *(float(np.abs(getattr(first, f)[:N_CHECK][okc] - getattr(cpu, f)[okc]).max())
+                    for f in ("phase_angle", "solar_elongation")))
+    if not dev_cpu <= 1e-12:
+        raise AssertionError(f"ephemeris card vs CPU: {dev_cpu!r} rad > 1e-12")
+
+    # the N-body propagator on the first 512 rows against two-body
+    sub = {t: results[t] for t in first.traj_ids[:512]}
+    nb, nb_wall = batch(sub, request(propagator=PropagatorKind.n_body(NBodyConfig.with_planets())), body=2 + 9)
+    okn = nb.ok
+    assert np.array_equal(okn, first.ok[:512])
+    sep_nb = np.zeros(okn.shape)
+    sep_nb[okn] = _on_sky(nb, types.SimpleNamespace(ra=first.ra[:512], dec=first.dec[:512]), okn)
+    row_nb = sep_nb.max(axis=1)
+    sep = sep_nb[fitted[:512]][okn[fitted[:512]]]
+    describe(int(np.argmax(np.where(fitted[:512], row_nb, 0.0))), f"N-body {float(row_nb[fitted[:512]].max())!r} rad "
+             f"from two-body, the most among fitted orbits")
+    _log(f"  batch vs per-orbit API on 8 rows {worst!r}; card vs CPU on {N_CHECK} rows {dev_cpu!r} rad; N-body vs "
+         f"two-body on 512 rows x {P} pairs ({nb_wall!r} s, 2 + 9 body launches), {int(fitted[:512].sum())} fitted "
+         f"orbits: median {float(np.median(sep))!r}, p99 {float(np.percentile(sep, 99))!r}, max {float(sep.max())!r} "
+         f"rad (all live rows: {float(row_nb.max())!r}); peak memory {_peak_gb():.3f} GiB")
+    if not float(sep.max()) <= 1e-5:
+        raise AssertionError("ephemeris: the N-body propagator is over 1e-5 rad from two-body on a fitted orbit")
+    return launches
+
+
+def phase_nbody_correction(dev, eph, ds, params, results, summ6):
+    """Phase 13: the correction with the N-body propagator, seeded with
+    phase 6's orbits."""
+    import numpy as np
+    import torch
+
+    from outfit_tpu_torch import DifferentialCorrectionConfig, FitResult, NBodyConfig, PropagatorKind, fit_lsq
+    from outfit_tpu_torch.ephem import chebyshev_cuda
+    from outfit_tpu_torch.lsq import iteration
+    from outfit_tpu_torch.propagator import nbody
+
+    cfg = DifferentialCorrectionConfig(propagator=PropagatorKind.n_body(NBodyConfig.with_planets()),
+                                       divergence_grace_iterations=2, max_newton_iterations=4)
+    # the orbits the two-body correction converged.  A row that fell back to
+    # its IOD orbit is left out (it fails here as a row with no seed): such
+    # orbits reach e = 0.99 at a = 0.23 AU, the integrator needs hundreds of
+    # steps through their perihelia, and every trip advances all lanes
+    seeds = {tid: FitResult(tid, ok=r.ok, error=r.error, rms=r.normalised_rms, epoch=r.epoch, equinoctial=r.equinoctial)
+             for tid, r in results.items() if r.ok and not r.fell_back_to_iod}
+    run = lambda: fit_lsq(ds, eph, params, cfg, initial_orbits=seeds, device=dev)
+    launches = {"body": 0, "frame": 0}
+    torch.cuda.reset_peak_memory_stats()
+    chebyshev_cuda.reset_launch_counts()
+    with counted(nbody, "_acceleration_and_gradient") as rhs, counted(iteration, "observation_partials") as newton:
+        res, cold = _timed(run, dev)
+    got = _tally(launches)
+    want = {"body": 2 + 9 * newton.calls, "frame": 1}
+    if got != want or rhs.calls % 13:
+        raise AssertionError(f"N-body correction: kernel launches {got}, expected {want} (one cache build and "
+                             f"{newton.calls} propagations of 9 planet tables)")
+    chebyshev_cuda.reset_launch_counts()
+    res_w, warm = _timed(run, dev)
+    _tally(launches)
+    for tid in ds.traj_ids:
+        if not _same_fit(res[tid], res_w[tid], covariance=True):
+            raise AssertionError(f"{tid}: cold and warm N-body corrections differ")
+    summ = _summary(res)
+    frac, frac6 = summ["converged"] / summ["total"], summ6["converged"] / summ6["total"]
+    prof = []
+    syncs = count_syncs(lambda: prof.append(_profiled(run, dev)))  # one fit serves both
+    _, wall, busy, n_launch, top = prof[0]
+    conv_trips_per_step = rhs.calls / 13 / newton.calls
+    _log(f"N-body correction: {len(seeds)} of {len(ds.traj_ids)} trajectories seeded x {N_SYNTH_OBS} observations, cold {cold!r} s, warm "
+         f"{warm!r} s; {newton.calls} Newton steps, {rhs.calls // 13} trips ({rhs.calls / 13 / newton.calls:.1f} per "
+         f"step), kernel launches {got}; profiled {wall!r} s, device busy {busy!r} s ({100.0 * busy / wall:.1f} %), "
+         f"{n_launch} kernels and copies, {syncs} host syncs; peak memory {_peak_gb():.3f} GiB")
+    for e in top:
+        _log(f"    {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+    _log(f"N-body correction outcome: {summ}; converged fraction {frac!r} vs two-body (phase 6) {frac6!r}")
+    if not abs(frac - frac6) <= 0.02:
+        raise AssertionError("N-body correction: converged fraction more than 0.02 from the two-body fit's")
+    # the planets move a 12-observation 40-day fit inside its flat
+    # chi-squared valley: by a fraction of its formal uncertainty, not by
+    # 1e-4 of the elements
+    conv = lambda r: r.ok and not r.fell_back_to_iod
+    both = [t for t, r in res.items() if conv(r) and conv(results[t])]
+    dev_el = lambda a, b: np.abs(a.equinoctial - b.equinoctial)
+    rel = np.array([np.max(dev_el(res[t], results[t]) / (1e-2 + np.abs(results[t].equinoctial))) for t in both])
+    sig = np.array([np.max(dev_el(res[t], results[t]) / results[t].uncertainties) for t in both])
+    _log(f"  elements against the two-body fit (phase 6) on {len(both)} rows converged in both: relative to 0.01 + "
+         f"|element| median {float(np.median(rel))!r}, p99 {float(np.percentile(rel, 99))!r}, max {float(rel.max())!r}; "
+         f"in the two-body fit's 1-sigma uncertainties median {float(np.median(sig))!r}, p99 "
+         f"{float(np.percentile(sig, 99))!r}, max {float(sig.max())!r}")
+    if not (float(np.median(sig)) <= NBODY_FIT_SIGMA[0] and float(np.percentile(sig, 99)) <= NBODY_FIT_SIGMA[1]):
+        raise AssertionError("N-body correction: too many sigma from the two-body fit")
+    # the same dynamics through both propagators: the Sun-only N-body
+    # correction against the two-body correction, from the same orbits
+    sun_cfg = dataclasses.replace(cfg, propagator=PropagatorKind.n_body(NBodyConfig()))
+    two_cfg = dataclasses.replace(cfg, propagator=PropagatorKind.two_body())
+    chebyshev_cuda.reset_launch_counts()
+    sun, sun_wall = _timed(lambda: fit_lsq(ds, eph, params, sun_cfg, initial_orbits=seeds, device=dev), dev)
+    two, _ = _timed(lambda: fit_lsq(ds, eph, params, two_cfg, initial_orbits=seeds, device=dev), dev)
+    if _tally(launches) != {"body": 4, "frame": 2}:
+        raise AssertionError("the Sun-only N-body correction looks up no planet table: two cache builds only")
+    changed = [t for t in sun if (sun[t].ok, sun[t].status, sun[t].fell_back_to_iod) !=
+               (two[t].ok, two[t].status, two[t].fell_back_to_iod)]
+    both = [t for t in sun if t not in changed and conv(sun[t])]
+    rel = np.array([np.max(dev_el(sun[t], two[t]) / (1e-2 + np.abs(two[t].equinoctial))) for t in both])
+    _log(f"  Sun-only N-body correction ({sun_wall!r} s) against the two-body correction from the same orbits: "
+         f"{len(changed)} rows with another outcome, {len(both)} converged in both, elements relative to 0.01 + "
+         f"|element| median {float(np.median(rel))!r}, max {float(rel.max())!r}")
+    if not (len(changed) <= NBODY_FIT_CHANGED and float(rel.max()) <= 1e-4):
+        raise AssertionError("Sun-only N-body correction: over 1e-4 from the two-body correction")
+    sub = head(ds, N_CHECK)
+    sub_seeds = {t: seeds[t] for t in sub.traj_ids if t in seeds}
+    rg = fit_lsq(sub, eph, params, cfg, initial_orbits=sub_seeds, device=dev)
+    rc = fit_lsq(head(ds, N_CHECK), eph, params, cfg, initial_orbits=sub_seeds, device="cpu")
+    worst = 0.0
+    for tid in sub.traj_ids:
+        a, b = rc[tid], rg[tid]
+        if (a.ok, a.status, a.fell_back_to_iod) != (b.ok, b.status, b.fell_back_to_iod):
+            raise AssertionError(f"{tid}: N-body correction differs card/CPU: {a.status} vs {b.status}")
+        if a.ok:
+            np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9, err_msg=tid)
+            worst = max(worst, float(np.max(np.abs(b.equinoctial - a.equinoctial))))
+    apart = sum(not _same_fit(rg[tid], res[tid]) for tid in sub.traj_ids)
+    _log(f"  card vs CPU, {N_CHECK} trajectories: same outcomes, max |d elements| {worst!r}; {apart} of the "
+         f"{N_CHECK} rows differ bitwise from their rows in the full batch")
+
+    # what an unseeded N-body fit hands its correction: every ok orbit of
+    # phase 6 on the first trajectories, the IOD-fallback orbits among them
+    # (up to e = 0.99 at a = 0.23 AU).  Their lanes take hundreds of steps
+    # through a perihelion and every loop trip advances all lanes, so the
+    # trips per Newton step are the stragglers'
+    part = head(ds, N_NBODY_FIT_ALL)
+    seeds_all = {tid: FitResult(tid, ok=True, rms=results[tid].normalised_rms, epoch=results[tid].epoch,
+                                equinoctial=results[tid].equinoctial) for tid in part.traj_ids if results[tid].ok}
+    n_fell = sum(results[tid].fell_back_to_iod for tid in seeds_all)
+    torch.cuda.reset_peak_memory_stats()
+    chebyshev_cuda.reset_launch_counts()
+    with counted(nbody, "_acceleration_and_gradient") as rhs, counted(iteration, "observation_partials") as newton:
+        res_all, wall_all = _timed(lambda: fit_lsq(part, eph, params, cfg, initial_orbits=seeds_all, device=dev), dev)
+    got = _tally(launches)
+    want = {"body": 2 + 9 * newton.calls, "frame": 1}
+    trips_all = rhs.calls // 13
+    if got != want or rhs.calls % 13 or trips_all > newton.calls * cfg.propagator.config.max_steps:
+        raise AssertionError(f"N-body correction, every ok orbit seeded: kernel launches {got}, expected {want}; "
+                             f"{trips_all} trips in {newton.calls} propagations of at most "
+                             f"{cfg.propagator.config.max_steps} each")
+    summ_all = _summary(res_all)
+    frac_all = summ_all["converged"] / summ_all["total"]
+    conv6 = sum(r.ok and not r.fell_back_to_iod and r.status == 1 for r in (results[t] for t in part.traj_ids))
+    frac6_all = conv6 / len(part.traj_ids)
+    _log(f"N-body correction, first {len(part.traj_ids)} trajectories, every ok orbit of phase 6 seeded ({len(seeds_all)}, "
+         f"{n_fell} of them IOD fallbacks): one fit {wall_all!r} s; {newton.calls} Newton steps, {trips_all} trips "
+         f"({trips_all / newton.calls:.1f} per step, {trips_all / newton.calls / conv_trips_per_step:.1f}x "
+         f"the converged seeds'), kernel launches {got}; outcome {summ_all}; converged fraction {frac_all!r} vs "
+         f"two-body (phase 6, the same rows) {frac6_all!r}; peak memory {_peak_gb():.3f} GiB")
+    if not (n_fell > 0 and abs(frac_all - frac6_all) <= 0.02):
+        raise AssertionError("N-body correction, every ok orbit seeded: converged fraction more than 0.02 from the "
+                             "two-body fit's on the same rows")
+    return launches
+
+
 def main():
     sys.path.insert(0, HERE)
     dev = phase_device()
@@ -1049,6 +1637,8 @@ def main():
     ds, picks = real_cadence_dataset(N_TRAJ)
     synth = synthetic_dataset(N_SYNTH, N_SYNTH_OBS, eph)
     times = phase_kernel_check(dev, eph, {"real cadence": ds, "synthetic": synth})
+    planets_err = phase_kernel_check_planets(dev, eph, synth)
+    times["body"]["err"] = max(times["body"]["err"], planets_err)
     launches, _, _, _ = phase_slice(dev, eph, ds, picks)
     phase_cross_check(dev, eph, ds, picks)
 
@@ -1057,17 +1647,6 @@ def main():
     lean = IODParams(n_noise_realizations=3, newton_max_it=20, max_triplets=2)
     cfg = DifferentialCorrectionConfig(divergence_grace_iterations=2, max_newton_iterations=4)
     rich = IODParams(n_noise_realizations=0, newton_max_it=20, max_triplets=16, max_obs_for_triplets=48)
-    f64 = {}
-    for tag, data, params, config in (
-        ("synthetic 8192 x 12 IOD+LSQ", synth, lean, cfg),
-        ("real-cadence 4096 IOD+LSQ", ds, rich, DifferentialCorrectionConfig()),
-    ):
-        t = time.perf_counter()
-        got, *f64[tag] = phase_unseeded(dev, eph, data, params, config, 7, tag)
-        _log(f"{tag} phase: {time.perf_counter() - t!r} s")
-        for site in launches:
-            launches[site] += got[site]
-
     # the JAX bench's production profiles (bench.py:509-556), mixed precision
     headline = IODParams(n_noise_realizations=3, precision="mixed", newton_max_it=20, max_triplets=2)
     headline_cfg = DifferentialCorrectionConfig(divergence_grace_iterations=2, precision="mixed",
@@ -1079,18 +1658,32 @@ def main():
     rc_lean_cfg = DifferentialCorrectionConfig(divergence_grace_iterations=2, precision="mixed",
                                                max_newton_iterations=4, prewarm_max_iterations=16,
                                                max_outlier_rejection_passes=3)
-    for tag, run in (
-        ("mixed synthetic 8192 x 12 IOD+LSQ", lambda: phase_mixed(
-            dev, eph, synth, headline, headline_cfg, 7, *f64["synthetic 8192 x 12 IOD+LSQ"])),
-        ("stream synthetic 3 x 8192 x 12", lambda: phase_stream(dev, eph, (400, 401, 402), headline, headline_cfg, 7)),
-        ("escalating real-cadence 3 x 4096", lambda: phase_escalating(
-            dev, eph, (101, 102, 103), [(rc_lean, rc_lean_cfg), (rc_rich, headline_cfg)], 7)),
-    ):
+
+    def timed_phase(tag, phase, *args):
         t = time.perf_counter()
-        got = run()
+        out = phase(*args)
         _log(f"{tag} phase: {time.perf_counter() - t!r} s")
+        return out
+
+    def add(got):
         for site in launches:
             launches[site] += got[site]
+
+    tag = "synthetic 8192 x 12 IOD+LSQ"
+    got, warm6, summ6, res6 = timed_phase(tag, phase_unseeded, dev, eph, synth, lean, cfg, 7, tag)
+    add(got)
+    tag = "real-cadence 4096 IOD+LSQ"
+    add(timed_phase(tag, phase_unseeded, dev, eph, ds, rich, DifferentialCorrectionConfig(), 7, tag)[0])
+    add(timed_phase("mixed synthetic 8192 x 12 IOD+LSQ", phase_mixed, dev, eph, synth, headline, headline_cfg, 7,
+                    warm6, summ6))
+    got, table9 = timed_phase("stream synthetic 3 x 8192 x 12", phase_stream, dev, eph, (400, 401, 402), headline,
+                              headline_cfg, 7)
+    add(got)
+    add(timed_phase("escalating real-cadence 3 x 4096", phase_escalating, dev, eph, (101, 102, 103),
+                    [(rc_lean, rc_lean_cfg), (rc_rich, headline_cfg)], 7))
+    add(timed_phase("N-body propagation 4096 x 30 d", phase_nbody, dev, eph))
+    add(timed_phase("ephemeris generation 8192 x 64", phase_ephemeris, dev, eph, res6, table9))
+    add(timed_phase("N-body correction synthetic 8192 x 12", phase_nbody_correction, dev, eph, synth, lean, res6, summ6))
 
     kernels = [
         {

@@ -12,7 +12,12 @@ extraction), seeded by the IOD or by ``initial_orbits``; in float64 or, with
 ``precision="mixed"``, with float32 iterative stages and float64 polish;
 results as dicts or as an ``LsqTable``; and the service modes
 (``fit_lsq_stream``, ``fit_lsq_escalating``, ``fit_lsq_stream_escalating``,
-``fit_full_iod_stream``).  The package imports ``torch`` and never ``jax``.
+``fit_full_iod_stream``).  Beside the fitting path: N-body propagation
+(``propagate_nbody``: DOP853 with the state transition matrix, frozen or
+moving perturbers, also as the correction's propagator through
+``PropagatorKind.n_body``) and ephemeris generation (``compute_ephemeris``,
+``compute_ephemerides_for_results``, ``compute_ephemerides_batch``).  The
+package imports ``torch`` and never ``jax``.
 """
 
 from outfit_tpu_torch.elements.types import (
@@ -24,6 +29,23 @@ from outfit_tpu_torch.elements.types import (
 )
 from outfit_tpu_torch.ephem.api import JPLEphem
 from outfit_tpu_torch.ephem.bodies import Body
+from outfit_tpu_torch.ephemeris.api import (
+    FullOrbitResultExt,
+    compute_ephemerides_for_results,
+    compute_ephemeris,
+)
+from outfit_tpu_torch.ephemeris.batch import EphemerisTable, compute_ephemerides_batch
+from outfit_tpu_torch.ephemeris.compute import ApparentPosition, BodyGeometry
+from outfit_tpu_torch.ephemeris.config import AberrationOrder, EphemerisConfig
+from outfit_tpu_torch.ephemeris.request import (
+    Combined,
+    EphemerisMode,
+    EphemerisRequest,
+    Geometry,
+    ObserverRequest,
+    Position,
+)
+from outfit_tpu_torch.ephemeris.result import EphemerisEntry, EphemerisResult
 from outfit_tpu_torch.errors import OutfitError
 from outfit_tpu_torch.iod.api import (
     IODRMS,
@@ -49,30 +71,51 @@ from outfit_tpu_torch.lsq.table import LsqTable
 from outfit_tpu_torch.observations.dataset import ObsDataset
 from outfit_tpu_torch.observations.error_model import ErrorModel
 from outfit_tpu_torch.observations.observatories import Observer, get_observatory
+from outfit_tpu_torch.propagator import NBodyConfig, PropagatorKind, dop853_integrate, propagate_nbody
 from outfit_tpu_torch.time.scales import Ut1Provider
 
 __all__ = [
+    "AberrationOrder",
+    "ApparentPosition",
     "Body",
+    "BodyGeometry",
+    "Combined",
     "CometaryElements",
     "DifferentialCorrectionConfig",
     "DifferentialCorrectionOutput",
+    "EphemerisConfig",
+    "EphemerisEntry",
+    "EphemerisMode",
+    "EphemerisRequest",
+    "EphemerisResult",
+    "EphemerisTable",
     "EquinoctialElements",
     "EquinoctialLimits",
     "ErrorModel",
     "FitResult",
     "FullOrbitResult",
+    "FullOrbitResultExt",
     "GaussResult",
+    "Geometry",
     "IODParams",
     "IODRMS",
     "JPLEphem",
     "KeplerianElements",
     "LsqResult",
     "LsqTable",
+    "NBodyConfig",
     "ObsDataset",
     "Observer",
+    "ObserverRequest",
     "OrbitalElements",
     "OutfitError",
+    "Position",
+    "PropagatorKind",
     "Ut1Provider",
+    "compute_ephemerides_batch",
+    "compute_ephemerides_for_results",
+    "compute_ephemeris",
+    "dop853_integrate",
     "fit_full_iod",
     "fit_full_iod_parallel",
     "fit_full_iod_stream",
@@ -82,4 +125,5 @@ __all__ = [
     "fit_lsq_stream",
     "fit_lsq_stream_escalating",
     "get_observatory",
+    "propagate_nbody",
 ]

@@ -1,7 +1,7 @@
 """Ephemeris facade: batched heliocentric state queries.
 
 Port of the query half of ``outfit_tpu/ephem/api.py`` (``_interp``,
-``_sun``, ``_moon_embrel``, ``earth_ephemeris``), over tables from the
+``_sun``, ``_moon_embrel``, ``earth_ephemeris``, ``body_ephemeris``), over tables from the
 analytic source or handed over as numpy arrays.  The Horizon and NAIF file
 parsers stay in the JAX package for now.
 """
@@ -16,6 +16,7 @@ import torch
 from outfit_tpu_torch.ephem.analytic import EMRAT, build_analytic_tables
 from outfit_tpu_torch.ephem.bodies import Body
 from outfit_tpu_torch.ephem.chebyshev import BodyTable, interpolate_body
+from outfit_tpu_torch.utils.tensors import as_f64
 
 #: default coverage for the analytic source (MJD): 1960-01-01 .. 2060-01-01
 _ANALYTIC_SPAN = (36934.0, 73459.0)
@@ -34,6 +35,7 @@ class JPLEphem:
         self.tables = tables
         self.emrat = float(emrat)
         self.kind = kind
+        self._moved = {}  # device -> this ephemeris with its tables there
 
     @classmethod
     def analytic(cls, t_start: float = _ANALYTIC_SPAN[0], t_end: float = _ANALYTIC_SPAN[1]) -> "JPLEphem":
@@ -58,14 +60,27 @@ class JPLEphem:
             kind=kind,
         )
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the tables."""
+        return next(iter(self.tables.values())).coeffs.device
+
     def to(self, device) -> "JPLEphem":
-        """The same ephemeris with its tables on ``device``."""
+        """The same ephemeris with its tables on ``device``: uploaded on the
+        first call for a device and kept, so a fit or a propagation that
+        moves a host ephemeris to the card on every call uploads once."""
         device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # a tensor's device carries its index: "cuda" is "cuda:<current>"
+            device = torch.device("cuda", torch.cuda.current_device())
         if all(t.coeffs.device == device for t in self.tables.values()):
             return self
-        return JPLEphem(
-            {b: t.to(device) for b, t in self.tables.items()}, self.emrat, self.kind
-        )
+        moved = self._moved.get(device)
+        if moved is None:
+            moved = self._moved[device] = JPLEphem(
+                {b: t.to(device) for b, t in self.tables.items()}, self.emrat, self.kind
+            )
+        return moved
 
     # -- queries (batched) ----------------------------------------------------
 
@@ -101,3 +116,26 @@ class JPLEphem:
             pos = emb_p - moon_p / self.emrat - sun_p
             vel = emb_v - moon_v / self.emrat - sun_v if velocity else None
         return pos, vel
+
+    def body_ephemeris(self, body: Body, mjd_tt):
+        """Heliocentric state of a perturbing body (AU, AU/day), equatorial
+        J2000: zeros for the Sun, EMB for the Earth-Moon barycenter, the
+        true bodies for ``Body.EARTH`` and ``Body.MOON``."""
+        body = Body(body)
+        if body == Body.SUN:
+            t = as_f64(mjd_tt, self.device)
+            z = torch.zeros(t.shape + (3,), dtype=torch.float64, device=t.device)
+            return z, z
+        if body == Body.EARTH:
+            return self.earth_ephemeris(mjd_tt, True)
+        if body == Body.MOON:
+            # heliocentric Moon = EMB + moon_rel_emb
+            sun_p, sun_v = self._sun(mjd_tt, True)
+            emb_p, emb_v = self._interp(Body.EMB, mjd_tt, True)
+            moon_p, moon_v = self._moon_embrel(mjd_tt, True)
+            return emb_p + moon_p - sun_p, emb_v + moon_v - sun_v
+        pos, vel = self._interp(body, mjd_tt, True)
+        if Body.SUN not in self.tables:  # heliocentric tables: minus 0.0
+            return pos, vel
+        sun_p, sun_v = self._sun(mjd_tt, True)
+        return pos - sun_p, vel - sun_v

@@ -67,3 +67,8 @@ class DifferentialCorrectionDiverged(OutfitError):
 
 class DifferentialCorrectionFailed(OutfitError):
     """Normal-equation inversion failed; LSQ status code 4."""
+
+
+class InvalidOrbit(OutfitError):
+    """Ephemeris request on a non-elliptical orbit (e >= 1 precheck,
+    observation_ephemeris.rs:288-296)."""

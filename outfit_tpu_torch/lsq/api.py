@@ -1,7 +1,8 @@
 """fit_lsq and its service modes: IOD + differential correction over
 whole datasets.
 
-Port of ``outfit_tpu/lsq/api.py`` (two-body, float64 or mixed precision):
+Port of ``outfit_tpu/lsq/api.py`` (two-body or N-body propagator, float64
+or mixed precision):
 
 * without ``initial_orbits``: Gauss IOD (:func:`outfit_tpu_torch.iod.api.
   fit_full_iod`) on the same observer cache and device, then the seeded
@@ -157,9 +158,10 @@ class LsqResult:
 DifferentialCorrectionOutput = LsqResult
 
 
-def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False):
+def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False, ephem=None):
     """Differential correction from an explicit per-trajectory seed map.
-    ``slim``: the covariance crosses to the host as float32."""
+    ``slim``: the covariance crosses to the host as float32.  ``ephem``: for
+    an N-body ``config.propagator`` (moved to ``device`` here)."""
     results: Dict[str, LsqResult] = {}
     rows = []
     for tid in dataset.iter_traj_id():
@@ -189,7 +191,8 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False):
     obs = ObsArrays(*_gather_obs_tables(base_arrays(dataset, cache, device), glob, valid), valid)
     f64 = dict(dtype=torch.float64, device=device)
     out = run_differential_correction(
-        torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config
+        torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config,
+        ephem=ephem.to(device) if config.propagator.nbody else None,
     )
     n_active = ((out.selection == SEL_ACTIVE) & valid).sum(dim=-1)
     # the JAX package returns the covariance mirrored from its lower triangle
@@ -284,10 +287,10 @@ def _fit_lsq(
     if cache is None:
         cache = ObserverCache.build(dataset, ephem, ut1, device=device)
     if initial_orbits is not None:
-        res = _fit_lsq_seeded(dataset, config, initial_orbits, cache, device)
+        res = _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, ephem=ephem)
     else:
         iod = _fit_full_iod(dataset, ephem, iod_params, seed, ut1, None, cache, device, draws, slim)
-        res = _fit_lsq_seeded(dataset, config, iod, cache, device, slim)
+        res = _fit_lsq_seeded(dataset, config, iod, cache, device, slim, ephem)
         res = {tid: res[tid] for tid in dataset.traj_ids}
     return _as_table(dataset, res, minimal) if as_table else res
 

@@ -1,9 +1,10 @@
 """One Newton step of differential correction, batched over trajectories.
 
-Port of ``outfit_tpu/lsq/iteration.py`` (two-body):
+Port of ``outfit_tpu/lsq/iteration.py``:
 
 * observation partials: two-body propagation with analytic 6x3 element
-  Jacobians, chain rule through the ecliptic->equatorial rotation and the
+  Jacobians, or N-body propagation (DOP853 + state transition matrix),
+  chain rule through the ecliptic->equatorial rotation and the
   position-dependence of the aberration correction,
 * residuals with RA wrapping,
 * the weighted least-squares solve: normal matrix, free-element masking
@@ -66,21 +67,38 @@ class IterationResult(NamedTuple):
     kepler: torch.Tensor  # (T, N, 3) (F, sin F, cos F) — warm start
 
 
-def observation_partials(elements_vec, epoch, obs: ObsArrays, jacobian_dtype=None, kepler_warm=None):
+def observation_partials(
+    elements_vec, epoch, obs: ObsArrays, propagator=None, ephem=None,
+    jacobian_dtype=None, kepler_warm=None,
+):
     """Predicted (RA, Dec) + d/d(elem) for every (trajectory, observation).
 
     ``elements_vec`` (T, 6) equinoctial in ecliptic J2000; ``epoch`` (T,).
     Returns (ra, dec, d_ra (T,N,6), d_dec (T,N,6), prop_ok (T,N), kepler).
+
+    ``propagator`` selects two-body (default, analytic Jacobians) or N-body
+    (DOP853 + STM), which needs ``ephem`` and leaves ``kepler`` NaN.
+    ``jacobian_dtype=torch.float32`` (two-body only) evaluates the element
+    Jacobians in float32 beside a float64 propagation.
     """
     eq = EquinoctialElements(
         epoch[:, None], *(elements_vec[:, None, i] for i in range(6))
     )
-    if jacobian_dtype is None:
+    if propagator is not None and propagator.nbody:
+        from outfit_tpu_torch.propagator.nbody import propagate_nbody
+
+        nb = propagate_nbody(eq, obs.mjd, ephem, propagator.config, device=obs.mjd.device)
+        st_pos, st_vel, st_dpos, st_conv = nb.position, nb.velocity, nb.dpos_delem, nb.status == 0
+        kepler = torch.full(
+            obs.mjd.shape + (3,), float("nan"), dtype=st_pos.dtype, device=st_pos.device
+        )
+    elif jacobian_dtype is None:
         st = propagate_twobody(
             eq, epoch[:, None], obs.mjd, compute_derivatives=True,
             kepler_warm=kepler_warm,
         )
         st_pos, st_vel, st_dpos, st_conv = st.position, st.velocity, st.dpos_delem, st.converged
+        kepler = torch.stack([st.anomaly, st.anomaly_sin, st.anomaly_cos], dim=-1)
     else:
         st = propagate_twobody(
             eq, epoch[:, None], obs.mjd, compute_derivatives=False, kepler_warm=kepler_warm,
@@ -98,7 +116,7 @@ def observation_partials(elements_vec, epoch, obs: ObsArrays, jacobian_dtype=Non
         st_pos, st_vel = st.position, st.velocity
         st_dpos = st_j.dpos_delem.to(st_pos.dtype)
         st_conv = st.converged & st_j.converged
-    kepler = torch.stack([st.anomaly, st.anomaly_sin, st.anomaly_cos], dim=-1)
+        kepler = torch.stack([st.anomaly, st.anomaly_sin, st.anomaly_cos], dim=-1)
 
     rot = device_constant(ROT_ECLMJ2000_TO_EQUMJ2000, st_pos.device, st_pos.dtype)
     pos = torch.sum(rot * st_pos[..., None, :], -1)  # (T, N, 3) equ
@@ -137,11 +155,19 @@ def _angular_diff(obs, calc):
 
 
 def single_iteration(
-    elements_vec, epoch, selection, obs: ObsArrays, free_elements, jacobian_dtype=None, kepler_warm=None
+    elements_vec,
+    epoch,
+    selection,
+    obs: ObsArrays,
+    free_elements,
+    propagator=None,
+    ephem=None,
+    jacobian_dtype=None,
+    kepler_warm=None,
 ) -> IterationResult:
     """One batched Newton step."""
     ra_c, dec_c, d_ra, d_dec, prop_ok, kepler = observation_partials(
-        elements_vec, epoch, obs, jacobian_dtype, kepler_warm
+        elements_vec, epoch, obs, propagator, ephem, jacobian_dtype, kepler_warm
     )
 
     active = (selection == SEL_ACTIVE) & obs.valid & prop_ok

@@ -1,12 +1,13 @@
 """Nested Newton / outlier-rejection loops, batched over trajectories.
 
-Port of ``outfit_tpu/lsq/loop.py`` with the two-body propagator: the
+Port of ``outfit_tpu/lsq/loop.py``: the
 inner Newton loop with inversion / bizarre / divergence / stagnation /
 convergence checks in the reference's order, the outer projection-based
 chi-squared outlier-rejection loop, and the final covariance rescale.
 ``precision="mixed"`` adds the float32 pre-warm (:func:`_prewarm_f32`),
 float32 Jacobians inside the float64 loop, and one float64 linearization
-at the converged elements.
+at the converged elements; with an N-body propagator (a float64
+integrator) ``"mixed"`` runs the plain float64 loop.
 
 Every trajectory carries its own loop-state lanes; terminal failures are
 status codes, frozen in place while other trajectories continue.  The JAX
@@ -72,14 +73,10 @@ class _St(NamedTuple):
 
 
 def check_supported(cfg: DifferentialCorrectionConfig) -> None:
-    """Raise for the configurations this port does not run yet."""
+    """Raise for a configuration the correction does not take."""
     if cfg.precision not in ("f64", "mixed"):
         raise ValueError(
             f"DifferentialCorrectionConfig.precision must be 'f64' or 'mixed', got {cfg.precision!r}"
-        )
-    if cfg.propagator.nbody:
-        raise NotImplementedError(
-            "the N-body propagator is not ported yet (ROADMAP: queue 1, item 8, N-body)"
         )
 
 
@@ -141,12 +138,14 @@ def run_differential_correction(
     obs: ObsArrays,
     cfg: DifferentialCorrectionConfig,
     selection0=None,
+    ephem=None,
 ) -> DiffCorResult:
     """Batched differential correction.
 
     ``elements0`` (T, 6) equinoctial vectors (ecliptic J2000), ``epoch`` (T,),
     ``obs`` padded observation arrays; ``selection0`` optional initial
-    selection codes (default: all valid observations Active).
+    selection codes (default: all valid observations Active); ``ephem``
+    (tables on the observations' device) for an N-body ``cfg.propagator``.
     """
     check_supported(cfg)
     T, N = obs.mjd.shape
@@ -160,7 +159,9 @@ def run_differential_correction(
     elements0 = torch.as_tensor(elements0, **f64)
     # mixed: float32 Jacobians inside the float64 loop (the residuals stay
     # float64, so the fixed point is the float64 one)
-    mixed = cfg.precision == "mixed"
+    # two-body only: with the N-body propagator "mixed" runs this float64
+    # loop, with no pre-warm and no float32 Jacobians
+    mixed = cfg.precision == "mixed" and not cfg.propagator.nbody
     jac_dtype = torch.float32 if mixed else None
     total0 = torch.zeros(T, dtype=torch.int32, device=dev)
     if mixed:
@@ -194,7 +195,7 @@ def run_differential_correction(
         while it < cfg.max_newton_iterations and bool((~inner_done).any()):
             act = ~inner_done
             res = single_iteration(
-                st.elements, epoch, st.selection, obs, free, jac_dtype,
+                st.elements, epoch, st.selection, obs, free, cfg.propagator, ephem, jac_dtype,
                 kepler_warm=(st.kepler[..., 0], st.kepler[..., 1], st.kepler[..., 2]),
             )
 
@@ -316,7 +317,7 @@ def run_differential_correction(
         # one float64 linearization at the converged elements refreshes what
         # the float32 Jacobians accumulated (the elements do not move)
         res = single_iteration(
-            st.elements, epoch, st.selection, obs, free,
+            st.elements, epoch, st.selection, obs, free, cfg.propagator, ephem,
             kepler_warm=(st.kepler[..., 0], st.kepler[..., 1], st.kepler[..., 2]),
         )
         keep = (st.status == STATUS_RUNNING) & res.inversion_ok

@@ -2,9 +2,8 @@
 """Propagator configuration.
 
 Parity: ``PropagatorKind`` / ``NBodyConfig`` (``src/propagator/mod.rs``):
-default perturber list [Sun], abs/rel tolerances 1e-12.  The port runs the
-two-body propagator only; a configuration naming N-body raises where it
-is run (ROADMAP: queue 1, N-body).
+default perturber list [Sun], abs/rel tolerances 1e-12.  Frozen and
+hashable.
 """
 
 from dataclasses import dataclass
@@ -15,14 +14,21 @@ from outfit_tpu_torch.ephem.bodies import Body
 
 @dataclass(frozen=True)
 class NBodyConfig:
-    """Perturbing bodies + DOP853 tolerances (parity: mod.rs:132-162)."""
+    """Perturbing bodies + DOP853 tolerances (parity: mod.rs:132-162).
+
+    The Sun must be included for the central two-body term: the dynamics
+    treat every body uniformly (the Sun's direct term is the Keplerian
+    acceleration).
+    """
 
     perturbing_bodies: Tuple[int, ...] = (int(Body.SUN),)
     abs_tol: float = 1e-12
     rel_tol: float = 1e-12
     max_steps: int = 1000
     #: True = perturber positions snapshot at t0 (reference parity,
-    #: nbody.rs:73-87); False = interpolated at every integrator stage
+    #: nbody.rs:73-87; accurate for arcs <~30 d).  False = positions
+    #: interpolated from the ephemeris tables at every integrator stage
+    #: time, accurate for arbitrarily long arcs
     frozen_perturbers: bool = True
 
     @classmethod

@@ -41,6 +41,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def input_device(device, *inputs) -> torch.device:
+    """Where an entry point computes: ``device`` when the caller names one;
+    else the card an input already lies on; else the default of
+    :func:`resolve_device`, the card when one is present.  Numbers, numpy
+    arrays and CPU tensors (a fit result's elements) do not ask for the
+    CPU: ``device="cpu"`` does."""
+    if device is None:
+        for x in inputs:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                return x.device
+    return resolve_device(device)
+
+
 _CONSTANTS = {}
 _CONSTANTS_LOCK = threading.Lock()
 

@@ -16,6 +16,11 @@ tests/test_torch_mixed.py (float32 rounds differently on the two); mixed
 results identical whether TF32 matmuls are allowed or not; the stream on
 the card bitwise equal to sequential fits; the kernel's first build and
 launch counts, and the shared device constants, safe from two threads.
+The kernel against its plain version through every planet table of the
+N-body path (8 to 14 coefficients) at the table's scale (1e-15 AU and 1e-16
+AU/day times max(1, largest distance in AU)); ``propagate_nbody`` on the
+card against the CPU at 1e-10 AU with its exact launch count, and
+``compute_apparent`` at 1e-12.
 """
 
 import os
@@ -434,3 +439,97 @@ def test_first_kernel_use_and_constants_from_two_threads(eph, cuda, tmp_path, mo
     assert got[0] is got[1]
     assert chebyshev_cuda.launches["body"] == 100
     assert len(list(tmp_path.iterdir())) == 1
+
+
+PLANETS = [Body(b) for b in range(1, 10)]
+
+
+@pytest.mark.parametrize("body", PLANETS, ids=lambda b: b.name)
+@pytest.mark.parametrize("n", [37, 4096])
+def test_body_kernel_matches_plain_at_every_planet_table(eph, cuda, body, n):
+    """Mercury to Pluto: 8, 10, 12 and 14 coefficients, at stage epochs of
+    one 30-day window in lane order (unsorted, nearly equal)."""
+    table = eph.to(cuda).tables[body]
+    rng = np.random.default_rng(int(body))
+    mjd = torch.as_tensor(57000.0 + rng.uniform(0.0, 30.0, n), device=cuda)
+    p, v = interpolate_body(table, mjd)
+    p0, v0 = interpolate_body_plain(table, mjd)
+    scale = max(1.0, float(p0.norm(dim=-1).max()))
+    assert float((p - p0).abs().max()) <= 1e-15 * scale
+    assert float((v - v0).abs().max()) <= 1e-16 * scale
+
+
+def _nbody_lanes(n, dev):
+    from outfit_tpu_torch.elements.types import EquinoctialElements
+
+    rng = np.random.default_rng(3)
+    e, w = rng.uniform(0.0, 0.35, n), rng.uniform(0, 2 * np.pi, n)
+    cols = [np.full(n, 57000.0), rng.uniform(1.2, 3.5, n), e * np.sin(w), e * np.cos(w),
+            rng.uniform(-0.15, 0.15, n), rng.uniform(-0.15, 0.15, n), rng.uniform(0, 2 * np.pi, n)]
+    t1 = 57000.0 + rng.uniform(-30.0, 30.0, n)
+    return (EquinoctialElements(*(torch.as_tensor(c, device=dev) for c in cols)), torch.as_tensor(t1, device=dev))
+
+
+@pytest.mark.parametrize("frozen", [True, False], ids=["frozen", "moving"])
+def test_propagate_nbody_on_card_matches_cpu(eph, cuda, frozen):
+    from outfit_tpu_torch import NBodyConfig, propagate_nbody
+
+    cfg = NBodyConfig(perturbing_bodies=NBodyConfig.with_planets().perturbing_bodies, frozen_perturbers=frozen)
+    chebyshev_cuda.reset_launch_counts()
+    rg = propagate_nbody(*_nbody_lanes(64, cuda), eph, cfg)
+    launches = chebyshev_cuda.launches["body"]
+    rc = propagate_nbody(*_nbody_lanes(64, "cpu"), eph, cfg, device="cpu")
+    assert rg.position.device.type == "cuda" and (rg.status == 0).all() and (rc.status == 0).all()
+    # nine planet tables per perturber evaluation: one at t0, or thirteen
+    # per loop trip
+    assert launches == 9 if frozen else (launches > 0 and launches % (9 * 13) == 0)
+    np.testing.assert_allclose(rg.position.cpu().numpy(), rc.position.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(rg.velocity.cpu().numpy(), rc.velocity.numpy(), rtol=0, atol=1e-11)
+    np.testing.assert_allclose(rg.dpos_delem.cpu().numpy(), rc.dpos_delem.numpy(), rtol=0, atol=1e-8)
+    assert (rg.n_steps.cpu() - rc.n_steps).abs().max() <= 2
+
+
+@pytest.mark.parametrize("kind", ["numpy", "cpu_tensor"])
+def test_host_inputs_run_on_the_card_by_default(eph, cuda, kind):
+    """``propagate_nbody``, ``dop853_integrate`` and ``gast`` with host
+    inputs and no device named run on the card; ``device="cpu"`` asks for
+    the CPU."""
+    from outfit_tpu_torch import NBodyConfig, Ut1Provider, dop853_integrate, propagate_nbody
+    from outfit_tpu_torch.observer.geometry import gast
+
+    eq, t1 = _nbody_lanes(4, "cpu")
+    if kind == "numpy":
+        eq, t1 = type(eq)(*(f.numpy() for f in eq)), t1.numpy()
+    chebyshev_cuda.reset_launch_counts()
+    nb = propagate_nbody(eq, t1, eph, NBodyConfig.with_planets())
+    assert nb.position.is_cuda and chebyshev_cuda.launches["body"] == 9 and (nb.status == 0).all()
+    on_cpu = propagate_nbody(eq, t1, eph, NBodyConfig.with_planets(), device="cpu")
+    assert on_cpu.position.device.type == "cpu"
+    np.testing.assert_allclose(nb.position.cpu().numpy(), on_cpu.position.numpy(), rtol=0, atol=1e-10)
+    y0 = np.ones((4, 1)) if kind == "numpy" else torch.ones((4, 1), dtype=torch.float64)
+    assert dop853_integrate(lambda t, y: -y, y0, 0.0, 1.0).y.is_cuda
+    assert dop853_integrate(lambda t, y: -y, y0, 0.0, 1.0, device="cpu").y.device.type == "cpu"
+    assert gast(t1, Ut1Provider()).is_cuda and gast(t1, Ut1Provider(), "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("order", [1, 2], ids=["first", "second"])
+@pytest.mark.parametrize("nbody", [False, True], ids=["two_body", "n_body"])
+def test_compute_apparent_on_card_matches_cpu(eph, cuda, nbody, order):
+    from outfit_tpu_torch import AberrationOrder, NBodyConfig, PropagatorKind
+    from outfit_tpu_torch.elements.types import EquinoctialElements
+    from outfit_tpu_torch.ephemeris.compute import compute_apparent
+
+    prop = PropagatorKind.n_body(NBodyConfig.with_planets()) if nbody else PropagatorKind.two_body()
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        eq, _ = _nbody_lanes(32, dev)
+        epochs = torch.as_tensor(57000.0 + np.arange(1.0, 9.0), device=dev)
+        obs_p, obs_v = eph.to(dev).earth_ephemeris(epochs)
+        out[dev.type] = compute_apparent(
+            EquinoctialElements(*(f[:, None] for f in eq)), epochs.expand(32, 8), obs_p[None], obs_v[None],
+            prop, AberrationOrder(order), eph.to(dev),
+        )
+    g, c = out["cuda"], out["cpu"]
+    assert g.ok.all() and c.ok.all()
+    for fg, fc in zip([*g.position, *g.geometry], [*c.position, *c.geometry]):
+        np.testing.assert_allclose(fg.cpu().numpy(), fc.numpy(), rtol=0, atol=1e-12)
