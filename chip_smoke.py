@@ -26,7 +26,8 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    where that is over 1 AU), the kernel's device time (20
    launches queued behind a sleep kernel, between CUDA events), its bound
    (bytes over the H100's 3.35 TB/s or float64 operations over 34 TFLOP/s,
-   the larger) and their ratio, and at phase 4's shape one call of the
+   the larger; the bytes of the epochs, the outputs and the table rows the
+   call reads) and their ratio, and at phase 4's shape one call of the
    wrapper and of the plain version (CUDA events around the call);
 4. the seeded least-squares path at real size: the real-cadence workload
    (the fixtures 2015AB, 8467 and 33803 tiled round-robin to 4096
@@ -119,8 +120,38 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    budget bounding the trips, the converged fraction within 0.02 of
    phase 6's on the same rows, and its trips per Newton step beside the
    converged seeds'.
+14. from files to orbits: the analytic source refitted over DE440's span
+   (MJD -112816 to 288976) at DE440's granules and coefficient counts
+   (``DE440_LAYOUT``: 6, 7, 8, 10, 11, 13 and 14 per component, up to
+   100,448 granules), written with the port's writers as a NAIF SPK kernel
+   (the nine barycentres and a zero Sun relative to the barycentre, 301
+   and 399 relative to the EMB) and as a legacy DE binary, parsed through
+   ``JPLEphem("naif:DE440", path=...)`` and ``JPLEphem("horizon:DE440",
+   path=...)`` (parse seconds, bytes on the card); the kernel against its
+   plain version on every parsed table at 4,096, 98,304 and 524,288 epochs
+   (phase 3's query sets and scaled bar; device time, bound over the rows
+   the call reads, share and the plain version's ms); phase 4's own tables through a Horizon file
+   (``au_km`` 2^27, a zero Sun): its seeded fit bitwise phase 4's on every
+   row; the seeded fit from each DE440-layout file (NAIF against Horizon at
+   rtol 1e-6 / atol 1e-9, converged count within 0.1 % of phase 4's, card
+   against CPU on 64 rows); phase 4's dataset written as MPC 80-column
+   records and as ADES XML, parsed by the native parser (which must have
+   built), by the Python parser (the two datasets identical in indices,
+   catalogs and observers, epochs within 1e-9 d and angles within 1e-12
+   rad) and by ``from_ades``, each fitted from the NAIF file (records/s,
+   converged counts); an NSIDE-64 debiasing table for the dataset's
+   catalog codes (``default_rng(14)``, sub-arcsecond) written and loaded,
+   the observations shifted by its bias and ``apply_debias``-ed, fitted in
+   float64 and in mixed precision, each against the fit of the data
+   debiased on the host in the same precision on the rows converged in
+   both: float64 at rtol 1e-7 / atol 1e-9, mixed with the same active
+   observations and within ``MIXED_DEBIAS_SIGMA`` of the 1-sigma
+   uncertainties (rows off rtol 1e-7 counted), and the shifted data fitted
+   without its bias moving the orbits by more than 1e-6.  Every fit from a DE file
+   launches the kernel three times at the body site (EMB, Moon or Earth,
+   Sun) and once at the frame site; fits/s beside phase 4's.
 
-Phases 11 to 13 print the card's peak memory.  Phases 6 to 10 each run one cold and one warm pass (results must agree),
+Phases 11 to 14 print the card's peak memory.  Phases 6 to 10 each run one cold and one warm pass (results must agree),
 print the outcome histogram and require, in the pass the counts were reset
 for, two body launches and one frame launch per observer cache build (one
 per dataset fit, and one for the escalating flush's refit); phases 6 and 7
@@ -129,8 +160,8 @@ of a warm fit, profile a warm fit split into its IOD and correction
 stages, and hold card against CPU on the first 64 trajectories.
 
 The line before the last is ``{"kernels": [...]}``: per site the launches
-summed over phases 4 and 6 to 13, the largest deviation of phase 3 (AU at
-the body site: an ulp or two of the outer planets' 30 AU), and at
+summed over phases 4 and 6 to 14, the largest deviation of phases 3 and 14
+(AU at the body site: an ulp or two of the outer planets' 30 AU), and at
 phase 4's shape the device time (``device_ms``), the bound (``bound_ms``,
 ``bound_by``), one call of the wrapper (``ms``) and of the plain version
 (``plain_ms``), and ``library_ms`` null (no single PyTorch call computes
@@ -354,15 +385,22 @@ def k1_flops(n_coeff, ch, deriv):
     return 5 + (n_coeff - 2) * per_k + n_coeff * ch * 2 * (2 if deriv else 1) + (ch if deriv else 0)
 
 
-def k1_bound_ms(n, coeffs_shape, deriv):
-    """(least milliseconds, "bytes" or "operations") of one K1 call on the
-    card: each input byte read once (the epochs and the whole table), each
-    output byte written once, over HBM_BYTES_PER_S, against the operations
-    over FP64_FLOP_PER_S."""
-    import math
+def touched_rows(mjd, t0, gran, n_gran):
+    """The distinct table rows K1 reads for the epochs ``mjd``: their
+    granule indices, clamped to the table (``ephem/chebyshev.py``)."""
+    import numpy as np
 
+    return len(np.unique(np.clip(np.floor((np.asarray(mjd) - t0) / gran), 0, n_gran - 1)))
+
+
+def k1_bound_ms(n, coeffs_shape, deriv, rows=None):
+    """(least milliseconds, "bytes" or "operations") of one K1 call on the
+    card: each input byte read once (the epochs, and the table's rows the
+    call reads: ``rows`` of them, every row when None), each output byte
+    written once, over HBM_BYTES_PER_S, against the operations over
+    FP64_FLOP_PER_S."""
     g, ch, c = coeffs_shape
-    nbytes = 8 * (n + n * ch * (2 if deriv else 1) + math.prod(coeffs_shape))
+    nbytes = 8 * (n + n * ch * (2 if deriv else 1) + (g if rows is None else rows) * ch * c)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = n * k1_flops(c, ch, deriv) / FP64_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -399,12 +437,15 @@ def phase_kernel_check(dev, eph, workloads):
         frame = _frame_table(t0, gran, n_gran, dev)
         sites = [(b.name, "body", eph_d.tables[b].coeffs, (POS_ATOL, VEL_ATOL),
                   lambda m, t=eph_d.tables[b]: interpolate_body(t, m),
-                  lambda m, t=eph_d.tables[b]: interpolate_body_plain(t, m)) for b in (Body.EMB, Body.MOON)]
+                  lambda m, t=eph_d.tables[b]: interpolate_body_plain(t, m),
+                  touched_rows(q, eph_d.tables[b].t0, eph_d.tables[b].granule_days, eph_d.tables[b].coeffs.shape[0]))
+                 for b in (Body.EMB, Body.MOON)]
         sites.append((f"G={n_gran}", "frame", frame, (FRAME_ATOL, FRAME_ATOL),
-                      lambda m: _frame_interp(frame, m, t0, gran), lambda m: _frame_interp_plain(frame, m, t0, gran)))
+                      lambda m: _frame_interp(frame, m, t0, gran), lambda m: _frame_interp_plain(frame, m, t0, gran),
+                      touched_rows(q, t0, gran, n_gran)))
         for order, qq in (("path", q), ("shuffled", np.random.default_rng(1).permutation(q))):
             mjd = torch.as_tensor(qq, dtype=torch.float64, device=dev)
-            for label, site, coeffs, atol, kernel, plain in sites:
+            for label, site, coeffs, atol, kernel, plain, rows in sites:
                 worst = 0.0
                 for m in [mjd] + ([mjd[:37].contiguous()] if order == "path" else []):
                     for a, b, tol in zip(kernel(m), plain(m), atol):
@@ -415,7 +456,7 @@ def phase_kernel_check(dev, eph, workloads):
                         worst = max(worst, d)
                 out[site]["err"] = max(out[site]["err"], worst)
                 ms = device_ms(lambda: kernel(mjd))
-                bound, by = k1_bound_ms(len(qq), tuple(coeffs.shape), site == "body")
+                bound, by = k1_bound_ms(len(qq), tuple(coeffs.shape), site == "body", rows)
                 line = (f"K1 {site} {label} {name} {order} N={len(qq)}: device {1e3 * ms!r} us, bound "
                         f"{1e3 * bound!r} us ({by}), share {bound / ms!r}; max|d| {worst!r}")
                 if w == 0 and order == "path":
@@ -475,7 +516,7 @@ def phase_slice(dev, eph, ds, picks):
         if a.status != b.status or not np.array_equal(a.equinoctial, b.equinoctial):
             raise AssertionError(f"{tid}: cold and warm runs differ")
     profile_warm(dev, eph, ds, seeds, cfg)
-    return launches, cold, warm, hist
+    return launches, cold, warm, res
 
 
 def profile_warm(dev, eph, ds, seeds, cfg):
@@ -1141,7 +1182,8 @@ def phase_kernel_check_planets(dev, eph, synth):
                                      f"{dv!r} AU/day at scale {scale!r}")
             worst = max(worst, dp)
             ms = device_ms(lambda: interpolate_body(table, mjd))
-            bound, by = k1_bound_ms(n, tuple(table.coeffs.shape), True)
+            bound, by = k1_bound_ms(n, tuple(table.coeffs.shape), True,
+                                    touched_rows(q, table.t0, table.granule_days, table.coeffs.shape[0]))
             _log(f"K1 body {Body(b).name} C={table.coeffs.shape[2]} G={table.coeffs.shape[0]} N={n}: device "
                  f"{1e3 * ms!r} us, bound {1e3 * bound!r} us ({by}), share {bound / ms!r}; max|d| {dp!r} AU, "
                  f"{dv!r} AU/day (largest distance {scale!r} AU)")
@@ -1625,6 +1667,422 @@ def phase_nbody_correction(dev, eph, ds, params, results, summ6):
     return launches
 
 
+#: phase 14: DE440's span, JD 2287184.5 to 2688976.5 as MJD, in 32-day blocks
+DE440_SPAN, DE440_BLOCK_DAYS = (-112816.0, 288976.0), 32.0
+#: phase 14: per NAIF body id, (subintervals per 32-day block, coefficients
+#: per component) as DE440's IPT publishes them (the header record of
+#: linux_p1550p2650.440); 10 is the Sun (zero here: the analytic source is
+#: heliocentric), 301 the geocentric Moon
+DE440_LAYOUT = {1: (4, 14), 2: (2, 10), 3: (2, 13), 4: (1, 11), 5: (1, 8), 6: (1, 7), 7: (1, 6), 8: (1, 6),
+                9: (1, 6), 301: (8, 13), 10: (2, 11)}
+#: the DE file slot of each body (Mercury .. Pluto barycentres, Moon, Sun)
+DE_SLOT = {1: 0, 2: 1, 3: 2, 4: 3, 5: 4, 6: 5, 7: 6, 8: 7, 9: 8, 301: 9, 10: 10}
+#: phase 14: the most the DE440-layout fits' converged counts may differ from
+#: phase 4's, as a share of the trajectories
+DE440_CONVERGED_SHARE = 1e-3
+#: phase 14: the debiasing table's resolution (the published one's, the
+#: loader's default)
+DEBIAS_NSIDE = 64
+#: phase 14: how far the mixed-precision fit of the debiased observations may
+#: lie from the mixed fit of the same data debiased on the host, in the
+#: latter's 1-sigma uncertainties, with the same active observations.  With
+#: float32 Jacobians the 8467 copies' correction norm does not settle under
+#: the 1e-4 convergence threshold: it bounces between about 1e-4 and 3e-3
+#: until one step dips under the threshold or the RMS stagnates, so two
+#: starts a float32 rounding apart stop at two points of that floor
+#: (tools/torch_lsq/mixed_spread.py; PERF.md §6)
+MIXED_DEBIAS_SIGMA = 1e-2
+
+
+def de440_layout_tables():
+    """The analytic source refitted over DE440's span at DE440's granules
+    and coefficient counts (:data:`DE440_LAYOUT`), the Sun a zero table."""
+    import torch
+
+    from outfit_tpu_torch.ephem import analytic
+    from outfit_tpu_torch.ephem.bodies import Body
+    from outfit_tpu_torch.ephem.chebyshev import BodyTable, fit_body_table
+
+    t0, t1 = DE440_SPAN
+    tables = {}
+    for b, (ns, c) in DE440_LAYOUT.items():
+        gran = DE440_BLOCK_DAYS / ns
+        if b == 10:
+            n = int(round((t1 - t0) / gran))
+            tables[Body.SUN] = BodyTable(t0, gran, torch.zeros(n, 3, c, dtype=torch.float64))
+            continue
+        if b == 301:
+            fn = lambda m: analytic._ecl_to_equ(analytic.moon_geocentric_ecliptic(m))  # noqa: E731
+        else:
+            fn = lambda m, b=b: analytic._ecl_to_equ(analytic.planet_position_ecliptic(Body(b), m))  # noqa: E731
+        tables[Body(b)] = fit_body_table(fn, t0, t1, gran, c)
+    return tables
+
+
+def write_de_files(tables, directory, emrat, au_km=None, naif=True):
+    """Write ``tables`` (heliocentric planets and EMB, geocentric Moon, a
+    zero Sun, one start epoch and 32-day blocks) as a legacy DE binary (all
+    slots, ``au_km`` if given) and, with ``naif``, as an SPK kernel in
+    DE440's layout: the nine barycentres and the Sun relative to the solar
+    system barycentre, the Moon (301) and the Earth (399) relative to the
+    EMB.  Returns ``(naif path or None, horizon path)``."""
+    from outfit_tpu_torch.ephem.bodies import Body
+    from outfit_tpu_torch.ephem.chebyshev import BodyTable
+    from outfit_tpu_torch.ephem.horizon import write_synthetic_horizon
+    from outfit_tpu_torch.ephem.naif import write_synthetic_spk
+
+    kw = {} if au_km is None else {"au_km": au_km}
+    hpath = os.path.join(directory, "de.bin")
+    specs = {DE_SLOT[int(b)]: (tb, int(round(DE440_BLOCK_DAYS / tb.granule_days))) for b, tb in tables.items()}
+    write_synthetic_horizon(hpath, specs, emrat=emrat, **kw)
+    if not naif:
+        return None, hpath
+    npath = os.path.join(directory, "de.bsp")
+    f = 1.0 / (1.0 + emrat)
+    moon = tables[Body.MOON]
+    segs = [(int(b), 0, tables[b]) for b in tables if b != Body.MOON]
+    segs += [(301, 3, BodyTable(moon.t0, moon.granule_days, moon.coeffs * (1.0 - f))),
+             (399, 3, BodyTable(moon.t0, moon.granule_days, moon.coeffs * -f))]
+    write_synthetic_spk(npath, segs)
+    return npath, hpath
+
+
+def _utc_parts(mjd_tt, per_day):
+    """(calendar dates 'YYYY-MM-DD', time of day in units of 1/per_day) of
+    the UTC epochs of ``mjd_tt``, rounded to that unit."""
+    import numpy as np
+
+    from outfit_tpu_torch.time.scales import tt_mjd_to_utc
+
+    q = np.rint(tt_mjd_to_utc(mjd_tt) * per_day).astype(np.int64)
+    days, part = np.divmod(q, per_day)
+    return (np.datetime64("1858-11-17") + days.astype("timedelta64[D]")).astype(str), part
+
+
+def write_mpc80(path, ds):
+    """The dataset as MPC 80-column records: its trajectory ids as
+    provisional designations, epochs to 1e-6 d (UTC), RA to 0.001 s, Dec to
+    0.01 arcsec, magnitude, catalog code (column 72) and station."""
+    import numpy as np
+
+    dates, frac = _utc_parts(ds.mjd_tt, 10**6)
+    ra_ms = np.rint(ds.ra * (12.0 / np.pi) * 3.6e6).astype(np.int64) % (24 * 3600 * 1000)
+    dec_cas = np.rint(np.abs(ds.dec) * (180.0 / np.pi) * 3.6e5).astype(np.int64)
+    codes = [o.code for o in ds.observers]
+    lines = []
+    for i in range(len(ds)):
+        y, mo, d = dates[i].split("-")
+        h, r = divmod(int(ra_ms[i]), 3600000)
+        m, r = divmod(r, 60000)
+        ra = f"{h:02d} {m:02d} {r // 1000:02d}.{r % 1000:03d}"
+        dd, r2 = divmod(int(dec_cas[i]), 360000)
+        dm, r2 = divmod(r2, 6000)
+        dec = f"{'-' if ds.dec[i] < 0 else '+'}{dd:02d} {dm:02d} {r2 // 100:02d}.{r2 % 100:02d}"
+        mag = "     " if np.isnan(ds.mag[i]) else f"{ds.mag[i]:5.2f}"
+        lines.append(f"     {ds.traj_ids[ds.traj_index[i]]:<7}  C{y} {mo} {d}.{frac[i]:06d}{ra}{dec}         "
+                     f"{mag} {ds.catalog[i]}     {codes[ds.observer_index[i]]}\n")
+    with open(path, "w", encoding="ascii") as fh:
+        fh.writelines(lines)
+
+
+def write_ades(path, ds):
+    """The dataset as an ADES XML file: provID, stn, obsTime (UTC to 1 us),
+    ra and dec (degrees), rmsRA and rmsDec (arcsec) from its sigmas."""
+    import numpy as np
+
+    dates, us = _utc_parts(ds.mjd_tt, 86400 * 10**6)
+    codes = [o.code for o in ds.observers]
+    ra, dec = np.degrees(ds.ra), np.degrees(ds.dec)
+    rms_ra, rms_dec = ds.ra_error / (np.pi / 648000.0), ds.dec_error / (np.pi / 648000.0)
+    out = ['<?xml version="1.0" encoding="UTF-8"?>\n<ades version="2022">\n<obsBlock>\n<obsData>\n']
+    for i in range(len(ds)):
+        s, u = divmod(int(us[i]), 10**6)
+        h, s = divmod(s, 3600)
+        m, s = divmod(s, 60)
+        out.append(f"<optical><provID>{ds.traj_ids[ds.traj_index[i]]}</provID><stn>{codes[ds.observer_index[i]]}"
+                   f"</stn><obsTime>{dates[i]}T{h:02d}:{m:02d}:{s:02d}.{u:06d}Z</obsTime><ra>{ra[i]:.9f}</ra>"
+                   f"<dec>{dec[i]:.9f}</dec><rmsRA>{rms_ra[i]:.6f}</rmsRA><rmsDec>{rms_dec[i]:.6f}</rmsDec>"
+                   f"</optical>\n")
+    out.append("</obsData>\n</obsBlock>\n</ades>\n")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.writelines(out)
+
+
+def write_debias_table(path, catalogs, seed=14):
+    """A table in the published bias.dat format at NSIDE 64 for
+    ``catalogs``: offsets drawn from ``default_rng(seed)``, U(-0.5, 0.5)
+    arcsec, proper-motion terms U(-5, 5) mas/yr."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    npix = 12 * DEBIAS_NSIDE * DEBIAS_NSIDE
+    vals = np.empty((npix, len(catalogs), 4))
+    vals[..., :2] = rng.uniform(-0.5, 0.5, (npix, len(catalogs), 2))
+    vals[..., 2:] = rng.uniform(-5.0, 5.0, (npix, len(catalogs), 2))
+    with open(path, "w", encoding="ascii") as fh:
+        fh.write(f"! Star catalog debiasing table, HEALPix NSIDE= {DEBIAS_NSIDE} RING scheme\n")
+        fh.write("! " + " ".join(catalogs) + "\n")
+        np.savetxt(fh, vals.reshape(npix, -1), fmt="%.6f")
+
+
+def _fitted(tag, dev, eph, ds, seeds, cfg, total, body_launches):
+    """One seeded fit on the card, its wall and fits/s, with the kernel's
+    launches (counted from 0 for this fit, added to ``total``) held to one
+    observer cache build: ``body_launches`` at the body site (2 for the
+    analytic source, 3 for a DE file: EMB, Moon or Earth, and Sun) and 1
+    at the frame site."""
+    from outfit_tpu_torch import fit_lsq
+    from outfit_tpu_torch.ephem import chebyshev_cuda
+
+    chebyshev_cuda.reset_launch_counts()
+    res, wall = _timed(lambda: fit_lsq(ds, eph, config=cfg, initial_orbits=seeds, device=dev), dev)
+    got = _tally(total)
+    if got != {"body": body_launches, "frame": 1}:
+        raise AssertionError(f"{tag}: one cache build should launch the kernel {body_launches} times at the body "
+                             f"site and once at the frame site, got {got}")
+    _check_results(res, ds)
+    conv = sum(r.status == 1 and not r.fell_back_to_iod for r in res.values())
+    _log(f"  {tag}: {conv}/{len(res)} converged, wall {wall!r} s, {len(res) / wall!r} fits/s, launches {got}")
+    return res, conv
+
+
+def _deviation(a, b, rows):
+    """Largest element deviation between two result dicts over ``rows``."""
+    import numpy as np
+
+    return max((float(np.abs(a[t].equinoctial - b[t].equinoctial).max()) for t in rows), default=0.0)
+
+
+def _hold(got, ref, rtol, atol):
+    """``got`` against ``ref`` at (rtol, atol) on the rows converged in both.
+    Returns (largest deviation, rows compared, the rows off the bar, the
+    largest deviation of those in the reference's 1-sigma uncertainties,
+    the rows whose count of active observations differs)."""
+    import numpy as np
+
+    rows = [t for t in ref if ref[t].status == 1 and got[t].status == 1
+            and not ref[t].fell_back_to_iod and not got[t].fell_back_to_iod]
+    off, sigma, selection = [], 0.0, []
+    for t in rows:
+        a, b = got[t], ref[t]
+        d = np.abs(a.equinoctial - b.equinoctial)
+        if not np.all(d <= atol + rtol * np.abs(b.equinoctial)):
+            off.append(t)
+            sigma = max(sigma, float((d / b.uncertainties).max()))
+        if a.n_active_obs != b.n_active_obs:
+            selection.append(t)
+    return _deviation(got, ref, rows), len(rows), off, sigma, selection
+
+
+def phase_files(dev, eph, ds, picks, res4, walls4, synth):
+    """Phase 14: from files to orbits."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from outfit_tpu_torch import DifferentialCorrectionConfig, JPLEphem, ObsDataset, fit_lsq
+    from outfit_tpu_torch.ephem.bodies import Body
+    from outfit_tpu_torch.ephem.chebyshev import BodyTable, interpolate_body, interpolate_body_plain
+    from outfit_tpu_torch.observations.debias import DebiasTable, ang2pix_ring
+    from outfit_tpu_torch.observations.native import native_available
+
+    torch.cuda.reset_peak_memory_stats()
+    total = {"body": 0, "frame": 0}
+    seeds = seeds_for(ds, picks)
+    cfg = DifferentialCorrectionConfig()
+    n = len(ds.traj_ids)
+    tmp = tempfile.mkdtemp(prefix="outfit_phase14_")
+    clock = [time.perf_counter()]
+
+    def step_done(label):
+        now = time.perf_counter()
+        _log(f"  ({label}: {now - clock[0]!r} s)")
+        clock[0] = now
+
+    try:
+        # 1. DE440-layout files
+        t = time.perf_counter()
+        tables = de440_layout_tables()
+        refit = time.perf_counter() - t
+        t = time.perf_counter()
+        npath, hpath = write_de_files(tables, tmp, eph.emrat)
+        _log(f"DE440 layout: refit {refit!r} s ({sum(tb.coeffs.numel() for tb in tables.values()) * 8 / 1e6:.1f} MB "
+             f"of coefficients), written {time.perf_counter() - t!r} s: SPK {os.path.getsize(npath) / 1e6:.1f} MB, "
+             f"DE binary {os.path.getsize(hpath) / 1e6:.1f} MB")
+        files = {}
+        for name, src, path in (("NAIF", "naif:DE440", npath), ("Horizon", "horizon:DE440", hpath)):
+            t = time.perf_counter()
+            e = JPLEphem(src, path=path)
+            parse = time.perf_counter() - t
+            e_d, up = _timed(lambda: e.to(dev), dev)
+            nbytes = sum(tb.coeffs.numel() * 8 for tb in e_d.tables.values())
+            _log(f"  {name}: parsed in {parse!r} s, uploaded in {up!r} s; {len(e.tables)} tables, {nbytes} bytes "
+                 f"on the card; coverage {e.coverage}")
+            files[name] = e
+
+        step_done("DE440-layout files")
+
+        # 2. K1 on every parsed table at the paths' query counts
+        queries = dict(planet_queries(synth))
+        queries[len(padded_queries(ds.mjd_tt))] = padded_queries(ds.mjd_tt)
+        worst = 0.0
+        for name, e in files.items():
+            e_d = e.to(dev)
+            for body, table in e_d.tables.items():
+                g, _, c = table.coeffs.shape
+                for nq, q in sorted(queries.items()):
+                    mjd = torch.as_tensor(q, dtype=torch.float64, device=dev)
+                    (p, v), (p0, v0) = interpolate_body(table, mjd), interpolate_body_plain(table, mjd)
+                    scale = max(1.0, torch.sqrt(torch.sum(p0 * p0, -1)).max().item())
+                    dp, dv = (p - p0).abs().max().item(), (v - v0).abs().max().item()
+                    if not (dp <= POS_ATOL * scale and dv <= VEL_ATOL * scale):
+                        raise AssertionError(f"K1 {name} {Body(body).name} C={c} G={g} N={nq}: deviates from its plain "
+                                             f"version by {dp!r} AU, {dv!r} AU/day at scale {scale!r}")
+                    worst = max(worst, dp)
+                    ms = device_ms(lambda: interpolate_body(table, mjd))
+                    bound, by = k1_bound_ms(nq, (g, 3, c), True, touched_rows(q, table.t0, table.granule_days, g))
+                    plain_ms = _median_ms(lambda: interpolate_body_plain(table, mjd), runs=5)
+                    _log(f"K1 body {name} {Body(body).name} C={c} G={g} N={nq}: device {1e3 * ms!r} us, bound "
+                         f"{1e3 * bound!r} us ({by}), share {bound / ms!r}, plain version {plain_ms!r} ms; max|d| "
+                         f"{dp!r} AU, {dv!r} AU/day (largest distance {scale!r} AU)")
+
+        step_done("K1 on the parsed tables")
+
+        # 3. phase 4's tables through a Horizon file, bitwise
+        zero = BodyTable(eph.tables[Body.EMB].t0, eph.tables[Body.EMB].granule_days,
+                         torch.zeros_like(eph.tables[Body.EMB].coeffs))
+        sub = os.path.join(tmp, "span")
+        os.makedirs(sub)
+        _, rpath = write_de_files({**eph.tables, Body.SUN: zero}, sub, eph.emrat, au_km=2.0**27, naif=False)
+        e_rt = JPLEphem("horizon:DE440", path=rpath)
+        for b, tb in eph.tables.items():
+            if not torch.equal(e_rt.tables[b].coeffs, tb.coeffs) or e_rt.tables[b][:2] != tb[:2]:
+                raise AssertionError(f"{Body(b).name}: the Horizon round trip changed the table")
+        res_rt, _ = _fitted("phase 4 through a Horizon file (cold)", dev, e_rt, ds, seeds, cfg, total, 3)
+        for tid in ds.traj_ids:
+            a, b = res_rt[tid], res4[tid]
+            same = (a.status, a.fell_back_to_iod, a.normalised_rms) == (b.status, b.fell_back_to_iod, b.normalised_rms)
+            same = same and np.array_equal(a.equinoctial, b.equinoctial)
+            if not (same and (b.covariance is None or np.array_equal(a.covariance, b.covariance))):
+                raise AssertionError(f"{tid}: the fit from the Horizon file differs from phase 4's")
+        _log(f"  every row bitwise phase 4's (phase 4: {n / walls4[0]!r} fits/s cold, {n / walls4[1]!r} warm)")
+
+        step_done("bitwise round trip")
+
+        # 4. DE440-layout fits
+        conv4 = sum(r.status == 1 and not r.fell_back_to_iod for r in res4.values())
+        fits = {}
+        for name, e in files.items():
+            fits[name], conv = _fitted(f"DE440 layout, {name}", dev, e, ds, seeds, cfg, total, 3)
+            dev4 = _deviation(fits[name], res4, [t for t in ds.traj_ids if fits[name][t].status == res4[t].status == 1])
+            _log(f"    against phase 4 (analytic, {conv4} converged): largest element deviation {dev4!r}")
+            if abs(conv - conv4) > DE440_CONVERGED_SHARE * n:
+                raise AssertionError(f"{name}: {conv} converged against phase 4's {conv4}")
+        worst_nh, rows, off, _, _ = _hold(fits["NAIF"], fits["Horizon"], 1e-6, 1e-9)
+        _log(f"  NAIF vs Horizon on {rows} rows converged in both: {worst_nh!r}")
+        if off:
+            raise AssertionError(f"NAIF and Horizon fits differ beyond rtol 1e-6 / atol 1e-9 on {off}")
+        eph_n = files["NAIF"]
+        rg = fit_lsq(head(ds, N_CHECK), eph_n, config=cfg, initial_orbits=seeds, device=dev)
+        rc = fit_lsq(head(ds, N_CHECK), eph_n, config=cfg, initial_orbits=seeds, device="cpu")
+        for tid in rg:
+            a, b = rc[tid], rg[tid]
+            if (a.status, a.fell_back_to_iod, a.n_active_obs) != (b.status, b.fell_back_to_iod, b.n_active_obs):
+                raise AssertionError(f"{tid}: card and CPU disagree on the NAIF file")
+            np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9, err_msg=tid)
+        _log(f"  NAIF card vs CPU, {N_CHECK} trajectories: same statuses; max |d elements| "
+             f"{_deviation(rg, rc, list(rg))!r}")
+
+        step_done("DE440-layout fits")
+
+        # 5. observation files
+        mpath, apath = os.path.join(tmp, "obs.txt"), os.path.join(tmp, "obs.xml")
+        write_mpc80(mpath, ds)
+        write_ades(apath, ds)
+        if not native_available():
+            raise AssertionError("the native MPC parser did not build (no cc?): the smoke would time the Python one")
+        parsed = {}
+        for tag, fn in (("MPC native", lambda: ObsDataset.from_mpc_80_col_files([mpath], True, False)),
+                        ("MPC Python", lambda: ObsDataset.from_mpc_80_col_files([mpath], False, False)),
+                        ("ADES", lambda: ObsDataset.from_ades(apath))):
+            t = time.perf_counter()
+            parsed[tag] = fn()
+            sec = time.perf_counter() - t
+            _log(f"  {tag}: {len(parsed[tag])} records in {sec!r} s, {len(parsed[tag]) / sec!r} records/s")
+            if parsed[tag].traj_ids != ds.traj_ids or len(parsed[tag]) != len(ds):
+                raise AssertionError(f"{tag}: parsed {len(parsed[tag])} records of {len(parsed[tag].traj_ids)} "
+                                     f"trajectories, wrote {len(ds)} of {n}")
+        a, b = parsed["MPC native"], parsed["MPC Python"]
+        for f in ("traj_index", "observer_index", "catalog"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"native and Python MPC parsers differ in {f}")
+        if [vars(o) for o in a.observers] != [vars(o) for o in b.observers]:
+            raise AssertionError("native and Python MPC parsers differ in the observers")
+        d = {f: float(np.abs(getattr(a, f) - getattr(b, f)).max()) for f in ("mjd_tt", "ra", "dec")}
+        if not (d["mjd_tt"] <= 1e-9 and d["ra"] <= 1e-12 and d["dec"] <= 1e-12):
+            raise AssertionError(f"native and Python MPC parsers differ: {d}")
+        _log(f"  native vs Python MPC datasets: indices, catalogs and observers identical; max |d| {d}")
+        for tag, pds in parsed.items():
+            _fitted(f"{tag} file, NAIF DE440 layout", dev, eph_n, pds, seeds, cfg, total, 3)
+
+        step_done("observation files")
+
+        # 6. debiasing
+        cats = sorted(set(ds.catalog) - {" "})
+        tpath = os.path.join(tmp, "bias.dat")
+        write_debias_table(tpath, cats)
+        t = time.perf_counter()
+        table = DebiasTable.load(tpath)
+        _log(f"  debiasing table NSIDE {table.nside}, catalogs {table.catalogs}: loaded in {time.perf_counter() - t!r} s")
+        b_ra, b_dec = table.bias_radians(ds.ra, ds.dec, ds.mjd_tt, ds.catalog)
+        shifted = dataclasses.replace(ds, ra=ds.ra + b_ra, dec=ds.dec + b_dec)
+        raw = dataclasses.replace(shifted)
+        shifted.apply_debias(table)
+        crossed = int((ang2pix_ring(table.nside, ds.ra, ds.dec) != ang2pix_ring(table.nside, shifted.ra,
+                                                                                 shifted.dec)).sum())
+        clean = dataclasses.replace(ds, ra=shifted.ra - shifted.bias_ra, dec=shifted.dec - shifted.bias_dec)
+        _log(f"  shift: max {np.abs(b_ra).max() / (np.pi / 648000.0)!r} arcsec in RA; {int((b_ra != 0).sum())} of "
+             f"{len(ds)} observations biased; {crossed} moved into another sky pixel (so the clean reference is "
+             f"the data debiased on the host)")
+        clean_fits = {}
+        for prec in ("f64", "mixed"):
+            pcfg = DifferentialCorrectionConfig(precision=prec)
+            clean_fits[prec], _ = _fitted(f"clean (debiased on the host), {prec}", dev, eph_n, clean, seeds, pcfg,
+                                          total, 3)
+            got, _ = _fitted(f"debiased, {prec}", dev, eph_n, shifted, seeds, pcfg, total, 3)
+            w, rows, off, sigma, selection = _hold(got, clean_fits[prec], 1e-7, 1e-9)
+            _log(f"    against the clean fit in {prec} on {rows} rows converged in both: {w!r}; {len(off)} rows off "
+                 f"rtol 1e-7 / atol 1e-9, at most {sigma!r} sigma; {len(selection)} with other active observations")
+            # float64 subtracts the bias as the host did: the same numbers; the
+            # mixed pre-warm rounds observation and bias to float32 apart, so
+            # it starts elsewhere and stops elsewhere inside the convergence
+            # threshold (MIXED_DEBIAS_SIGMA)
+            if (prec == "f64" and off) or selection or sigma > MIXED_DEBIAS_SIGMA:
+                raise AssertionError(f"debiased {prec} fit off the clean fit: {len(off)} rows off the bar, up to "
+                                     f"{sigma!r} sigma, {len(selection)} with other active observations")
+        ref = clean_fits["f64"]
+        w, rows, off, _, _ = _hold(ref, fits["NAIF"], 1e-7, 1e-9)
+        if off:
+            raise AssertionError(f"the host-debiased data fits off the unshifted data's fit on {off}")
+        w_mx, rows_mx, off_mx, sigma_mx, sel_mx = _hold(clean_fits["mixed"], ref, 1e-7, 1e-9)
+        _log(f"    clean float64 fit against the unshifted data's on {rows} rows: {w!r}; clean mixed against clean "
+             f"float64 on {rows_mx} rows: {w_mx!r}, {len(off_mx)} rows off the bar, at most {sigma_mx!r} sigma, "
+             f"{len(sel_mx)} with other active observations")
+        nobias, _ = _fitted("shifted, no bias", dev, eph_n, raw, seeds, cfg, total, 3)
+        moved = _deviation(nobias, ref, [t for t in ds.traj_ids if nobias[t].status == ref[t].status == 1])
+        _log(f"    the orbit moves by up to {moved!r} without the bias")
+        if not moved > 1e-6:
+            raise AssertionError(f"fitting the shifted data without its bias moved the orbits by only {moved!r}")
+        step_done("debiasing")
+        _log(f"phase 14: kernel launches {total}; peak memory {_peak_gb():.3f} GiB")
+        return total, worst
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     sys.path.insert(0, HERE)
     dev = phase_device()
@@ -1639,7 +2097,7 @@ def main():
     times = phase_kernel_check(dev, eph, {"real cadence": ds, "synthetic": synth})
     planets_err = phase_kernel_check_planets(dev, eph, synth)
     times["body"]["err"] = max(times["body"]["err"], planets_err)
-    launches, _, _, _ = phase_slice(dev, eph, ds, picks)
+    launches, cold4, warm4, res4 = phase_slice(dev, eph, ds, picks)
     phase_cross_check(dev, eph, ds, picks)
 
     from outfit_tpu_torch import DifferentialCorrectionConfig, IODParams
@@ -1684,6 +2142,9 @@ def main():
     add(timed_phase("N-body propagation 4096 x 30 d", phase_nbody, dev, eph))
     add(timed_phase("ephemeris generation 8192 x 64", phase_ephemeris, dev, eph, res6, table9))
     add(timed_phase("N-body correction synthetic 8192 x 12", phase_nbody_correction, dev, eph, synth, lean, res6, summ6))
+    got, files_err = timed_phase("from files to orbits", phase_files, dev, eph, ds, picks, res4, (cold4, warm4), synth)
+    add(got)
+    times["body"]["err"] = max(times["body"]["err"], files_err)
 
     kernels = [
         {

@@ -12,7 +12,11 @@ extraction), seeded by the IOD or by ``initial_orbits``; in float64 or, with
 ``precision="mixed"``, with float32 iterative stages and float64 polish;
 results as dicts or as an ``LsqTable``; and the service modes
 (``fit_lsq_stream``, ``fit_lsq_escalating``, ``fit_lsq_stream_escalating``,
-``fit_full_iod_stream``).  Beside the fitting path: N-body propagation
+``fit_full_iod_stream``).  Ingestion from files: DE ephemerides
+(``JPLEphem("horizon:DE440", path=...)``, ``JPLEphem("naif:DE440",
+path=...)``), MPC 80-column files (a native C parser or Python), ADES XML,
+dataframes and parquet, and star-catalog debiasing
+(``ObsDataset.apply_debias``).  Beside the fitting path: N-body propagation
 (``propagate_nbody``: DOP853 with the state transition matrix, frozen or
 moving perturbers, also as the correction's propagator through
 ``PropagatorKind.n_body``) and ephemeris generation (``compute_ephemeris``,
@@ -20,6 +24,18 @@ moving perturbers, also as the correction's propagator through
 package imports ``torch`` and never ``jax``.
 """
 
+from outfit_tpu_torch import constants
+from outfit_tpu_torch.constants import (
+    AU,
+    GAUSS_GRAV,
+    GAUSS_GRAV_SQUARED,
+    RADEG,
+    RADH,
+    RADSEC,
+    SECONDS_PER_DAY,
+    T2000,
+    VLIGHT_AU,
+)
 from outfit_tpu_torch.elements.types import (
     CometaryElements,
     EquinoctialElements,
@@ -74,7 +90,10 @@ from outfit_tpu_torch.observations.observatories import Observer, get_observator
 from outfit_tpu_torch.propagator import NBodyConfig, PropagatorKind, dop853_integrate, propagate_nbody
 from outfit_tpu_torch.time.scales import Ut1Provider
 
+__version__ = "0.2.0"
+
 __all__ = [
+    "AU",
     "AberrationOrder",
     "ApparentPosition",
     "Body",
@@ -95,6 +114,8 @@ __all__ = [
     "FitResult",
     "FullOrbitResult",
     "FullOrbitResultExt",
+    "GAUSS_GRAV",
+    "GAUSS_GRAV_SQUARED",
     "GaussResult",
     "Geometry",
     "IODParams",
@@ -111,10 +132,17 @@ __all__ = [
     "OutfitError",
     "Position",
     "PropagatorKind",
+    "RADEG",
+    "RADH",
+    "RADSEC",
+    "SECONDS_PER_DAY",
+    "T2000",
     "Ut1Provider",
+    "VLIGHT_AU",
     "compute_ephemerides_batch",
     "compute_ephemerides_for_results",
     "compute_ephemeris",
+    "constants",
     "dop853_integrate",
     "fit_full_iod",
     "fit_full_iod_parallel",

@@ -1,14 +1,17 @@
-"""Ephemeris facade: batched heliocentric state queries.
+"""Ephemeris facade: source resolution and batched heliocentric state queries.
 
-Port of the query half of ``outfit_tpu/ephem/api.py`` (``_interp``,
-``_sun``, ``_moon_embrel``, ``earth_ephemeris``, ``body_ephemeris``), over tables from the
-analytic source or handed over as numpy arrays.  The Horizon and NAIF file
-parsers stay in the JAX package for now.
+Port of ``outfit_tpu/ephem/api.py``: the source strings
+(``"analytic:builtin"``, ``"horizon:<name>"``, ``"naif:<name>"`` with a
+local file; the port never downloads), ``_interp``, ``_sun``,
+``_moon_embrel``, ``earth_ephemeris``, ``body_ephemeris`` and ``coverage``,
+over tables from the analytic source, from a DE file, or handed over as
+numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,10 +19,27 @@ import torch
 from outfit_tpu_torch.ephem.analytic import EMRAT, build_analytic_tables
 from outfit_tpu_torch.ephem.bodies import Body
 from outfit_tpu_torch.ephem.chebyshev import BodyTable, interpolate_body
+from outfit_tpu_torch.errors import EphemerisBodyNotSupported, InvalidJPLStringFormat
 from outfit_tpu_torch.utils.tensors import as_f64
 
 #: default coverage for the analytic source (MJD): 1960-01-01 .. 2060-01-01
 _ANALYTIC_SPAN = (36934.0, 73459.0)
+
+#: NAIF (target, centre) segment of each body a DE SPK kernel carries
+_NAIF_PAIRS = {
+    Body.EMB: (3, 0),
+    Body.SUN: (10, 0),
+    Body.MOON: (301, 3),
+    Body.EARTH: (399, 3),
+    Body.MERCURY_BARY: (1, 0),
+    Body.VENUS_BARY: (2, 0),
+    Body.MARS_BARY: (4, 0),
+    Body.JUPITER_BARY: (5, 0),
+    Body.SATURN_BARY: (6, 0),
+    Body.URANUS_BARY: (7, 0),
+    Body.NEPTUNE_BARY: (8, 0),
+    Body.PLUTO_BARY: (9, 0),
+}
 
 
 class JPLEphem:
@@ -31,11 +51,56 @@ class JPLEphem:
     table when present.
     """
 
-    def __init__(self, tables: Dict[Body, BodyTable], emrat: float = EMRAT, kind: str = "analytic"):
+    def __init__(
+        self,
+        tables="analytic:builtin",
+        emrat: float = EMRAT,
+        kind: str = "analytic",
+        path: Optional[str] = None,
+    ):
+        """``tables``: a ``{Body: BodyTable}`` dict or a source string
+        (``"analytic:builtin"``, ``"horizon:DE440"``, ``"naif:DE440"``),
+        resolved by :meth:`new` with ``path``."""
+        if isinstance(tables, str):
+            resolved = JPLEphem.new(tables, path=path)
+            tables, emrat, kind = resolved.tables, resolved.emrat, resolved.kind
         self.tables = tables
         self.emrat = float(emrat)
         self.kind = kind
         self._moved = {}  # device -> this ephemeris with its tables there
+
+    @classmethod
+    def new(cls, source: str = "analytic:builtin", path: Optional[str] = None) -> "JPLEphem":
+        """Resolve an ephemeris source: ``"analytic:builtin"`` (the built-in
+        analytic source) or ``"horizon:<name>"`` / ``"naif:<name>"``, read
+        from ``path``, else from $OUTFIT_EPHEM_DIR, else from the OS cache
+        path (:func:`outfit_tpu_torch.ephem.resolver.resolve_ephemeris_file`;
+        a miss raises ``JPLFileNotFound``).  The tables are host tensors;
+        :meth:`to` (which the fits call) copies them to a device."""
+        scheme, _, name = source.partition(":")
+        if scheme == "analytic":
+            return cls.analytic()
+        file_path = path or _resolve_local_file(scheme, name)
+        if scheme == "horizon":
+            from outfit_tpu_torch.ephem.horizon import HorizonEphemeris
+
+            h = HorizonEphemeris(file_path)
+            return cls(h.tables(), emrat=h.emrat, kind="horizon")
+        if scheme == "naif":
+            from outfit_tpu_torch.ephem.naif import NaifEphemeris
+
+            n = NaifEphemeris(file_path)
+            tables = {}
+            for body, (t, c) in _NAIF_PAIRS.items():
+                try:
+                    tables[body] = n.segment_for(t, c).table
+                except EphemerisBodyNotSupported:
+                    pass
+            return cls(tables, emrat=EMRAT, kind="naif")
+        raise InvalidJPLStringFormat(
+            f"unknown ephemeris source {source!r} (expected 'analytic:builtin', "
+            f"'horizon:NAME' or 'naif:NAME')"
+        )
 
     @classmethod
     def analytic(cls, t_start: float = _ANALYTIC_SPAN[0], t_end: float = _ANALYTIC_SPAN[1]) -> "JPLEphem":
@@ -59,6 +124,13 @@ class JPLEphem:
             emrat=emrat,
             kind=kind,
         )
+
+    @property
+    def coverage(self):
+        """(first, last) MJD that every table covers."""
+        t0 = max(t.t0 for t in self.tables.values())
+        t1 = min(t.t_end for t in self.tables.values())
+        return t0, t1
 
     @property
     def device(self) -> torch.device:
@@ -139,3 +211,21 @@ class JPLEphem:
             return pos, vel
         sun_p, sun_v = self._sun(mjd_tt, True)
         return pos - sun_p, vel - sun_v
+
+
+def _resolve_local_file(scheme: str, name: str) -> str:
+    """Find a local ephemeris binary: $OUTFIT_EPHEM_DIR candidates first
+    (``<dir>/<scheme>/<file>`` or ``<dir>/<file>``), then the OS cache path
+    of :func:`outfit_tpu_torch.ephem.resolver.resolve_ephemeris_file`."""
+    base = os.environ.get("OUTFIT_EPHEM_DIR", os.path.expanduser("~/.cache/outfit_tpu"))
+    candidates = {
+        ("horizon", "DE440"): ["linux_p1550p2650.440", "de440.bin", "DE440.bsp"],
+        ("naif", "DE440"): ["de440.bsp", "de440s.bsp"],
+    }.get((scheme, name), [name])
+    for c in candidates:
+        for p in (os.path.join(base, scheme, c), os.path.join(base, c)):
+            if os.path.exists(p):
+                return p
+    from outfit_tpu_torch.ephem.resolver import resolve_ephemeris_file
+
+    return resolve_ephemeris_file(f"{scheme}:{name}")

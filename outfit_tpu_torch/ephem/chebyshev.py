@@ -26,6 +26,10 @@ class BodyTable(NamedTuple):
     granule_days: float
     coeffs: torch.Tensor  # (n_granules, 3, n_coeff) float64, contiguous
 
+    @property
+    def t_end(self):
+        return self.t0 + self.coeffs.shape[0] * self.granule_days
+
     def to(self, device) -> "BodyTable":
         return self._replace(coeffs=self.coeffs.to(device))
 

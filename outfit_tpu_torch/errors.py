@@ -35,6 +35,26 @@ class TrajectoryIdNotFound(OutfitError, KeyError):
     """Requested trajectory id is not in the dataset."""
 
 
+class InvalidJPLStringFormat(OutfitError, ValueError):
+    """Ephemeris source string is not 'scheme:NAME'."""
+
+
+class JPLFileNotFound(OutfitError, FileNotFoundError):
+    """Resolved ephemeris path does not exist (the port never downloads)."""
+
+
+class InvalidJPLEphemFileVersion(OutfitError, ValueError):
+    """Ephemeris binary has an unsupported format / layout."""
+
+
+class InvalidSpkDataType(OutfitError, ValueError):
+    """DAF/SPK segment data type is not Type 2 / Type 3."""
+
+
+class EphemerisBodyNotSupported(OutfitError, KeyError):
+    """No ephemeris segment/table for the requested body."""
+
+
 # -- per-trajectory result errors (stored as strings, never raised from the
 #    batch pipelines) ----------------------------------------------------------
 

@@ -123,15 +123,28 @@ def _padded_layout(dataset):
 
 def base_arrays(dataset, cache: ObserverCache, device):
     """Dataset-order observation columns on ``device``: (mjd, ra, dec,
-    sigma_ra, sigma_dec, observer heliocentric position)."""
+    sigma_ra, sigma_dec, observer heliocentric position, bias_ra,
+    bias_dec), the biases None when the dataset carries none."""
     f64 = dict(dtype=torch.float64, device=device)
     cols = (dataset.mjd_tt, dataset.ra, dataset.dec, dataset.ra_error, dataset.dec_error)
-    return tuple(torch.as_tensor(c, **f64) for c in cols) + (cache.helio_pos_pad.to(device),)
+    bias = (dataset.bias_ra, dataset.bias_dec)
+    return (
+        tuple(torch.as_tensor(c, **f64) for c in cols)
+        + (cache.helio_pos_pad.to(device),)
+        + tuple(None if b is None else torch.as_tensor(b, **f64) for b in bias)
+    )
+
+
+def _gather_bias(base, glob_g, valid_g):
+    """Padded per-trajectory bias tables (pad slots: 0), None where the
+    dataset carries no bias.  The correction subtracts them; the IOD fits
+    the observed (biased) angles, as the JAX package's does."""
+    return tuple(None if b is None else torch.where(valid_g, b[glob_g], 0.0) for b in base[6:])
 
 
 def _gather_obs_tables(base, glob_g, valid_g):
     """Padded per-trajectory observation tables (pad slots: 0 / sigma 1)."""
-    mjd_b, ra_b, dec_b, sra_b, sdec_b, helio_b = base
+    mjd_b, ra_b, dec_b, sra_b, sdec_b, helio_b = base[:6]
     return (
         torch.where(valid_g, mjd_b[glob_g], 0.0),
         torch.where(valid_g, ra_b[glob_g], 0.0),
@@ -147,7 +160,7 @@ def _assemble_lanes(base, g3, z, tk_t, obs_mjd, valid_g, wlo_s, whi_s, params: I
     ``g3`` (S, 3), draws ``z`` (S, n_real, 3, 2), trajectory row per triplet
     ``tk_t`` (S,) and RMS-window epoch bounds ``wlo_s``/``whi_s`` (S,).
     Returns (tri, lane_traj, window_mask)."""
-    mjd_b, ra_b, dec_b, sra_b, sdec_b, helio_b = base
+    mjd_b, ra_b, dec_b, sra_b, sdec_b, helio_b = base[:6]
     n_real = params.n_noise_realizations + 1
     ns = params.noise_scale
     S = g3.shape[0]

@@ -30,7 +30,6 @@ from typing import NamedTuple
 import torch
 
 from outfit_tpu_torch.constants import GAUSS_GRAV_SQUARED
-from outfit_tpu_torch.elements.orb_elem import eccentricity_control
 from outfit_tpu_torch.kepler.angles import principal_angle
 from outfit_tpu_torch.kepler.stumpff import halving_count, s_funct
 from outfit_tpu_torch.utils.linalg import cross3, norm3
@@ -446,6 +445,9 @@ def velocity_correction(
     reference, the eccentricity-control flag only shapes (e, energy); it
     does not reject.
     """
+    # imported here: elements.orb_elem imports this package
+    from outfit_tpu_torch.elements.orb_elem import eccentricity_control
+
     if cfg is None:
         cfg = SolverConfig(convergency=eps)
     x1, x2, v2 = as_floats(x1, x2, v2)

@@ -48,6 +48,7 @@ from outfit_tpu_torch.errors import (
 from outfit_tpu_torch.iod.api import (
     FitResult,
     _fit_full_iod,
+    _gather_bias,
     _gather_obs_tables,
     _padded_layout,
     base_arrays,
@@ -188,7 +189,8 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False, 
 
     valid = torch.as_tensor(g_valid, device=device)
     glob = torch.as_tensor(glob_all[rsel], device=device)
-    obs = ObsArrays(*_gather_obs_tables(base_arrays(dataset, cache, device), glob, valid), valid)
+    base = base_arrays(dataset, cache, device)
+    obs = ObsArrays(*_gather_obs_tables(base, glob, valid), valid, *_gather_bias(base, glob, valid))
     f64 = dict(dtype=torch.float64, device=device)
     out = run_differential_correction(
         torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config,

@@ -6,7 +6,7 @@ Port of ``outfit_tpu/lsq/iteration.py``:
   Jacobians, or N-body propagation (DOP853 + state transition matrix),
   chain rule through the ecliptic->equatorial rotation and the
   position-dependence of the aberration correction,
-* residuals with RA wrapping,
+* residuals against the debiased observations, with RA wrapping,
 * the weighted least-squares solve: normal matrix, free-element masking
   with unit diagonal, Cholesky inversion, normalised RMS, correction norm.
 
@@ -49,6 +49,11 @@ class ObsArrays(NamedTuple):
     sigma_dec: torch.Tensor
     helio_pos: torch.Tensor  # (T, N, 3) observer heliocentric, equatorial J2000
     valid: torch.Tensor  # (T, N) bool: real observation (not padding)
+    #: per-observation astrometric bias (radians; e.g. star-catalog
+    #: debiasing), subtracted from the observed angles in the residuals;
+    #: None = unbiased
+    bias_ra: torch.Tensor = None
+    bias_dec: torch.Tensor = None
 
 
 class IterationResult(NamedTuple):
@@ -175,8 +180,12 @@ def single_iteration(
     # step evaluates chi^2 against the current orbit
     usable = obs.valid & prop_ok
 
-    res_ra = torch.where(usable, _angular_diff(obs.ra, ra_c), 0.0)
-    res_dec = torch.where(usable, obs.dec - dec_c, 0.0)
+    # debiased residuals: the catalog bias is subtracted from the observed
+    # angles before differencing
+    obs_ra = obs.ra if obs.bias_ra is None else obs.ra - obs.bias_ra
+    obs_dec = obs.dec if obs.bias_dec is None else obs.dec - obs.bias_dec
+    res_ra = torch.where(usable, _angular_diff(obs_ra, ra_c), 0.0)
+    res_dec = torch.where(usable, obs_dec - dec_c, 0.0)
     g_ra = torch.where(usable[..., None], d_ra, 0.0)
     g_dec = torch.where(usable[..., None], d_dec, 0.0)
 

@@ -101,6 +101,9 @@ def _prewarm_f32(elements0, epoch, obs: ObsArrays, cfg: DifferentialCorrectionCo
     f32 = torch.float32
     obs32 = ObsArrays(
         obs.mjd, *(x.to(f32) for x in (obs.ra, obs.dec, obs.sigma_ra, obs.sigma_dec, obs.helio_pos)), obs.valid,
+        # the pre-warm fits the debiased residuals too: without the bias it
+        # converges to the biased optimum and the float64 loop walks back
+        *(None if b is None else b.to(f32) for b in (obs.bias_ra, obs.bias_dec)),
     )
     # the sigma-weighted correction norm has a float32 noise floor around
     # 0.01-0.1: stop on the threshold or when the decrease plateaus

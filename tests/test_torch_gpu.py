@@ -20,7 +20,10 @@ The kernel against its plain version through every planet table of the
 N-body path (8 to 14 coefficients) at the table's scale (1e-15 AU and 1e-16
 AU/day times max(1, largest distance in AU)); ``propagate_nbody`` on the
 card against the CPU at 1e-10 AU with its exact launch count, and
-``compute_apparent`` at 1e-12.
+``compute_apparent`` at 1e-12.  The kernel on tables parsed from NAIF and
+Horizon files at DE440's coefficient counts (6, 7, 11, 13) at the same
+scaled bar, and a fit from such a file with three body launches and one
+frame launch per cache build, card against CPU at rtol 1e-6 / atol 1e-9.
 """
 
 import os
@@ -533,3 +536,89 @@ def test_compute_apparent_on_card_matches_cpu(eph, cuda, nbody, order):
     assert g.ok.all() and c.ok.all()
     for fg, fc in zip([*g.position, *g.geometry], [*c.position, *c.geometry]):
         np.testing.assert_allclose(fg.cpu().numpy(), fc.numpy(), rtol=0, atol=1e-12)
+
+
+#: DE440's (subintervals per 32-day block, coefficients) of the bodies whose
+#: coefficient counts K1 meets only in DE files: Mars 11, Saturn 7, Uranus 6
+#: (with EMB and Moon at 13 and a zero 11-coefficient Sun, as DE440 has them)
+DE_FILE_BODIES = {Body.MARS_BARY: (1, 11), Body.SATURN_BARY: (1, 7), Body.URANUS_BARY: (1, 6),
+                  Body.EMB: (2, 13), Body.MOON: (8, 13), Body.SUN: (2, 11)}
+DE_SLOTS = {Body.MARS_BARY: 3, Body.SATURN_BARY: 5, Body.URANUS_BARY: 6, Body.EMB: 2, Body.MOON: 9, Body.SUN: 10}
+
+
+def _de_file(tmp_path, fmt, t0=60608.0, blocks=4):
+    """A synthetic DE file of format ``fmt`` over ``blocks`` 32-day blocks
+    from ``t0``: the analytic source refitted at DE440's layout."""
+    from outfit_tpu_torch.ephem import analytic
+    from outfit_tpu_torch.ephem.analytic import EMRAT
+    from outfit_tpu_torch.ephem.chebyshev import BodyTable, fit_body_table
+    from outfit_tpu_torch.ephem.horizon import write_synthetic_horizon
+    from outfit_tpu_torch.ephem.naif import write_synthetic_spk
+
+    t1 = t0 + 32.0 * blocks
+    tables = {}
+    for b, (ns, c) in DE_FILE_BODIES.items():
+        gran = 32.0 / ns
+        if b == Body.SUN:
+            tables[b] = BodyTable(t0, gran, torch.zeros(blocks * ns, 3, c, dtype=torch.float64))
+        elif b == Body.MOON:
+            tables[b] = fit_body_table(lambda m: analytic._ecl_to_equ(analytic.moon_geocentric_ecliptic(m)),
+                                       t0, t1, gran, c)
+        else:
+            tables[b] = fit_body_table(lambda m, b=b: analytic._ecl_to_equ(analytic.planet_position_ecliptic(b, m)),
+                                       t0, t1, gran, c)
+    path = str(tmp_path / f"de.{fmt}")
+    if fmt == "horizon":
+        write_synthetic_horizon(path, {DE_SLOTS[b]: (tb, DE_FILE_BODIES[b][0]) for b, tb in tables.items()})
+    else:
+        f, moon = 1.0 / (1.0 + EMRAT), tables[Body.MOON]
+        segs = [(int(b), 0, tb) for b, tb in tables.items() if b != Body.MOON]
+        segs += [(301, 3, BodyTable(moon.t0, moon.granule_days, moon.coeffs * (1.0 - f))),
+                 (399, 3, BodyTable(moon.t0, moon.granule_days, moon.coeffs * -f))]
+        write_synthetic_spk(path, segs)
+    return JPLEphem(f"{fmt}:DE440", path=path)
+
+
+@pytest.mark.parametrize("fmt", ["naif", "horizon"])
+@pytest.mark.parametrize("n", [37, 4096])
+def test_body_kernel_matches_plain_on_parsed_files(cuda, tmp_path, fmt, n):
+    """K1 on every table parsed from a DE file of each format, C = 6, 7, 11
+    and 13 among them, at the table's scale (1e-15 AU and 1e-16 AU/day times
+    max(1, largest distance in AU))."""
+    eph = _de_file(tmp_path, fmt).to(cuda)
+    counts = {int(tb.coeffs.shape[2]) for tb in eph.tables.values()}
+    assert {6, 7, 11, 13} <= counts
+    mjd = torch.as_tensor(np.random.default_rng(n).uniform(*eph.coverage, n), device=cuda)
+    for body, table in eph.tables.items():
+        before = chebyshev_cuda.launches["body"]
+        p, v = interpolate_body(table, mjd)
+        assert chebyshev_cuda.launches["body"] == before + 1
+        p0, v0 = interpolate_body_plain(table, mjd)
+        scale = max(1.0, float(p0.norm(dim=-1).max()))
+        assert float((p - p0).abs().max()) <= 1e-15 * scale, body
+        assert float((v - v0).abs().max()) <= 1e-16 * scale, body
+
+
+@pytest.mark.parametrize("fmt", ["naif", "horizon"])
+def test_fit_lsq_from_a_de_file_on_card_matches_cpu(cuda, tmp_path, fmt):
+    """The seeded fit of 8467 from a parsed DE file: one cache build
+    launches K1 three times at the body site (EMB, Moon or Earth, Sun) and
+    once at the frame site; card and CPU agree at rtol 1e-6 / atol 1e-9."""
+    import json
+
+    eph = _de_file(tmp_path, fmt)
+    with open(os.path.join(DATA, "iod_seeds_analytic.json"), encoding="utf-8") as fh:
+        rows = json.load(fh)["8467"]
+    seeds = {tid: FitResult(**{k: (np.array(v) if isinstance(v, list) else v) for k, v in d.items()})
+             for tid, d in rows.items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        chebyshev_cuda.reset_launch_counts()
+        out[dev] = fit_lsq(ObsDataset.from_mpc_80_col(os.path.join(DATA, "8467.obs")), eph,
+                           config=DifferentialCorrectionConfig(), error_model=ErrorModel.fcct14(),
+                           initial_orbits=seeds, device=dev)["8467"]
+        assert chebyshev_cuda.launches == ({"body": 3, "frame": 1} if dev == "cuda" else {"body": 0, "frame": 0})
+    a, b = out["cpu"], out["cuda"]
+    assert a.ok and not a.fell_back_to_iod
+    assert (a.status, a.n_active_obs, a.fell_back_to_iod) == (b.status, b.n_active_obs, b.fell_back_to_iod)
+    np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9)

@@ -573,11 +573,17 @@ def test_fit_iod_dataset_form_matches_batch(teph, quick_fit):
 def test_entry_points_take_the_jax_parameters_in_order():
     """Every entry point takes the JAX package's parameters in its
     positional order; the one stated difference is ``device``, last (before
-    a ``**`` catch-all), in place of ``mesh``."""
+    a ``**`` catch-all), in place of ``mesh``.  The ``ObsDataset``
+    constructors take them with the same defaults, and no ``device``."""
     import outfit_tpu.iod.api as jiod
     import outfit_tpu.lsq.api as jlsq
     import outfit_tpu_torch.iod.api as tiod
     import outfit_tpu_torch.lsq.api as tlsq
+
+    for name in ("from_mpc_80_col_files", "from_mpc_80_col", "from_records", "from_ades", "from_parquet",
+                 "from_dataframe", "concat"):
+        port, ref = (inspect.signature(getattr(c, name)).parameters.values() for c in (ObsDataset, JObsDataset))
+        assert [(p.name, p.kind, p.default) for p in port] == [(p.name, p.kind, p.default) for p in ref], name
 
     pairs = [(getattr(tiod, n), getattr(jiod, n)) for n in ("fit_full_iod", "fit_iod", "fit_full_iod_stream")]
     pairs += [

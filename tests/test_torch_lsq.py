@@ -375,7 +375,9 @@ def test_config_fields_and_serialisation_match_jax():
 
 def test_port_imports_without_jax():
     """The port and every module of the slice import with JAX absent from
-    ``sys.modules`` (the card's machine has no JAX)."""
+    ``sys.modules`` (the card's machine has no JAX), and without pandas
+    (nor has it pandas: ``from_parquet`` / ``from_dataframe`` import it when
+    called)."""
     pkg = os.path.dirname(outfit_tpu_torch.__file__)
     mods = sorted(
         "outfit_tpu_torch." + os.path.relpath(os.path.join(d, f), pkg)[:-3].replace(os.sep, ".")
@@ -385,12 +387,15 @@ def test_port_imports_without_jax():
     for m in ("lsq.api", "ephem.chebyshev_cuda", "iod.api", "iod.gauss", "iod.roots", "iod.scoring",
               "iod.triplets", "iod.noise", "kepler.stumpff", "kepler.universal", "elements.orb_elem",
               "propagator.dop853", "propagator.nbody", "ephemeris.compute", "ephemeris.api", "ephemeris.batch",
-              "ephemeris.config", "ephemeris.request", "ephemeris.result"):
+              "ephemeris.config", "ephemeris.request", "ephemeris.result", "ephem.naif", "ephem.horizon",
+              "ephem.resolver", "observations.ades", "observations.debias", "observations.native"):
         assert "outfit_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         "import outfit_tpu_torch\n"
+        "assert 'pandas' not in sys.modules, 'import outfit_tpu_torch imports pandas'\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        "assert 'pandas' not in sys.modules, 'a module of the port imports pandas'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'outfit_tpu.'))"
         " or m == 'outfit_tpu']\n"
         "assert not bad, bad\n"
