@@ -150,6 +150,20 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    without its bias moving the orbits by more than 1e-6.  Every fit from a DE file
    launches the kernel three times at the body site (EMB, Moon or Earth,
    Sun) and once at the frame site; fits/s beside phase 4's.
+15. fits split over a device list (one card named several times; a worker
+   thread per entry, each fitting a contiguous chunk of the trajectories
+   after the observer cache is built once on the first): phase 4's seeded
+   fit with ``device=["cuda:0"] * 2``, ``["cuda:0"] * 3`` (chunks of 1360,
+   1376 and 1360 trajectories: a chunk starts a multiple of 16 rows into
+   the batch, ``parallel.sharding.CHUNK_ROWS``), ``"auto"`` and None;
+   phase 8's mixed fit and
+   phase 9's slim/table/minimal stream split two ways; phase 10's
+   ``fit_lsq_escalating`` on its first dataset split two ways; phase 6's fit
+   through ``fit_lsq_dispatch`` / ``fit_lsq_finalize`` as a dict and as a
+   table.  Each is bitwise its earlier single-device result on every field
+   of every row (``total_newton_iterations`` included) and builds one
+   observer cache per fit (2 body + 1 frame launches); then phase 4's warm
+   wall and fits/s on one device and split two ways, in turns.
 
 Phases 11 to 14 print the card's peak memory.  Phases 6 to 10 each run one cold and one warm pass (results must agree),
 print the outcome histogram and require, in the pass the counts were reset
@@ -160,7 +174,7 @@ of a warm fit, profile a warm fit split into its IOD and correction
 stages, and hold card against CPU on the first 64 trajectories.
 
 The line before the last is ``{"kernels": [...]}``: per site the launches
-summed over phases 4 and 6 to 14, the largest deviation of phases 3 and 14
+summed over phases 4 and 6 to 15, the largest deviation of phases 3 and 14
 (AU at the body site: an ulp or two of the outer planets' 30 AU), and at
 phase 4's shape the device time (``device_ms``), the bound (``bound_ms``,
 ``bound_by``), one call of the wrapper (``ms``) and of the plain version
@@ -951,7 +965,7 @@ def phase_mixed(dev, eph, ds, params, cfg, seed, f64_warm, f64_summ):
     from outfit_tpu_torch import fit_lsq
 
     tag = "mixed synthetic 8192 x 12 IOD+LSQ"
-    launches, warm, summ, _ = phase_unseeded(dev, eph, ds, params, cfg, seed, tag, profile=False)
+    launches, warm, summ, res = phase_unseeded(dev, eph, ds, params, cfg, seed, tag, profile=False)
     _log(f"{tag}: converged fraction mixed {summ['converged'] / summ['total']!r} vs float64 (phase 6) "
          f"{f64_summ['converged'] / f64_summ['total']!r}; warm wall mixed {warm!r} s vs float64 {f64_warm!r} s")
     profile_stages(dev, eph, ds, params, cfg, seed)
@@ -970,7 +984,7 @@ def phase_mixed(dev, eph, ds, params, cfg, seed, f64_warm, f64_summ):
         if not _same_fit(out[False][tid], out[True][tid]):
             raise AssertionError(f"{tid}: mixed results depend on allow_tf32")
     _log(f"  allow_tf32 False / True: identical results on all {len(ds.traj_ids)} trajectories")
-    return launches
+    return launches, res
 
 
 def _slim_matches(r, ref, tid):
@@ -1022,7 +1036,7 @@ def _timed_stream(tag, run, datasets, launches, dev, fits):
 def phase_stream(dev, eph, dataset_seeds, params, cfg, seed):
     """Phase 9: fit_lsq_stream, default (cold and warm) and
     slim/table/minimal, against sequential fits of the same datasets.
-    Returns (launches, the first dataset's slim ``LsqTable``)."""
+    Returns (launches, the datasets, their slim ``LsqTable``s)."""
     import numpy as np
 
     from outfit_tpu_torch import fit_lsq, fit_lsq_stream
@@ -1060,11 +1074,13 @@ def phase_stream(dev, eph, dataset_seeds, params, cfg, seed):
         for tid, ref_r in r.items():
             _slim_matches(res.result(tid), ref_r, tid)
     _log(f"stream slim+table+minimal: {n} fits in {wall!r} s ({n / wall!r} fits/s); kernel launches {got}")
-    return launches, out[0][1]
+    return launches, datasets, [res for _, res in out]
 
 
 def phase_escalating(dev, eph, seeds, stages, seed):
-    """Phase 10: fit_lsq_stream_escalating over real-cadence datasets."""
+    """Phase 10: fit_lsq_stream_escalating over real-cadence datasets.
+    Returns (launches, the first dataset, its ``fit_lsq_escalating``
+    results, the stage fits they took)."""
     import numpy as np
 
     from outfit_tpu_torch import ObsDataset, fit_lsq, fit_lsq_escalating, fit_lsq_stream, fit_lsq_stream_escalating
@@ -1142,7 +1158,7 @@ def phase_escalating(dev, eph, seeds, stages, seed):
             raise AssertionError(f"{t}: the escalated row differs between fit_lsq_escalating and the stream")
     _log(f"  fit_lsq_escalating on dataset 0 ({len(retry0)} escalated) equals its stages by hand row by row, "
          f"and its escalated rows equal the stream's bitwise")
-    return launches
+    return launches, ds, tiered, 1 + bool(retry0)
 
 
 def planet_queries(synth):
@@ -1160,7 +1176,8 @@ def phase_kernel_check_planets(dev, eph, synth):
     shapes (:func:`planet_queries`).  The bar is the JAX package's (1e-15
     AU, 1e-16 AU/day) times max(1, the largest distance in AU among the
     plain version's positions): an ulp of Neptune's 30 AU is 3.6e-15 AU.
-    Prints per table the deviation, device time, bound and share.  Returns
+    Prints per table the deviation, device time, bound, share and the plain
+    version's time of one call.  Returns
     the largest position deviation (AU)."""
     import torch
 
@@ -1182,11 +1199,13 @@ def phase_kernel_check_planets(dev, eph, synth):
                                      f"{dv!r} AU/day at scale {scale!r}")
             worst = max(worst, dp)
             ms = device_ms(lambda: interpolate_body(table, mjd))
+            plain_ms = _median_ms(lambda: interpolate_body_plain(table, mjd))
             bound, by = k1_bound_ms(n, tuple(table.coeffs.shape), True,
                                     touched_rows(q, table.t0, table.granule_days, table.coeffs.shape[0]))
             _log(f"K1 body {Body(b).name} C={table.coeffs.shape[2]} G={table.coeffs.shape[0]} N={n}: device "
-                 f"{1e3 * ms!r} us, bound {1e3 * bound!r} us ({by}), share {bound / ms!r}; max|d| {dp!r} AU, "
-                 f"{dv!r} AU/day (largest distance {scale!r} AU)")
+                 f"{1e3 * ms!r} us, bound {1e3 * bound!r} us ({by}), share {bound / ms!r}; plain version "
+                 f"{plain_ms!r} ms (median of 20 calls); max|d| {dp!r} AU, {dv!r} AU/day (largest distance "
+                 f"{scale!r} AU)")
     return worst
 
 
@@ -2083,6 +2102,133 @@ def phase_files(dev, eph, ds, picks, res4, walls4, synth):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _identical(a, b):
+    """Two result rows (``LsqResult`` or ``FitResult``) equal on every field,
+    bitwise (NaN equal to NaN), the IOD rows too."""
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "iod" and x is not None and y is not None:
+            if not _identical(x, y):
+                return False
+        elif isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if x is None or y is None or x.dtype != y.dtype or not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                return False
+        elif not (x == y or (x != x and y != y)):
+            return False
+    return True
+
+
+def _identical_tables(a, b):
+    """Two ``LsqTable``s equal in every field their equality compares (not
+    the lazily built row index), bitwise (NaN equal to NaN)."""
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        if not f.compare:
+            continue
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if x is None or y is None or x.dtype != y.dtype or not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _hold_rows(tag, ref, got):
+    if list(got) != list(ref):
+        raise AssertionError(f"{tag}: rows or their order differ from one device's")
+    for tid, r in ref.items():
+        if not _identical(r, got[tid]):
+            raise AssertionError(f"{tid}: {tag} differs from one device's fit")
+
+
+def phase_split(dev, eph, ref):
+    """Phase 15: the fits of phases 4, 6, 8, 9 and 10 over a device list
+    (the card named two and three times, ``"auto"`` and None), each bitwise
+    its single-device result with one observer cache build per fit; the warm
+    walls of one device and of the two-way split in turns."""
+    import torch
+
+    from outfit_tpu_torch import LsqTable, fit_lsq, fit_lsq_escalating, fit_lsq_stream
+    from outfit_tpu_torch.ephem import chebyshev_cuda
+    from outfit_tpu_torch.lsq import fit_lsq_dispatch, fit_lsq_finalize
+    from outfit_tpu_torch.parallel.sharding import chunk_bounds
+
+    card = torch.device("cuda", torch.cuda.current_device()) if torch.device(dev).type == "cuda" else dev
+    two, three = [card] * 2, [card] * 3
+    launches = {"body": 0, "frame": 0}
+
+    def fit_counted(tag, fits, fn):
+        chebyshev_cuda.reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        wall = time.perf_counter() - t
+        got = dict(chebyshev_cuda.launches)
+        _per_fit(tag, got, fits)
+        for site in launches:
+            launches[site] += got[site]
+        return out, wall
+
+    ds, seeds, res4 = ref["ds4"], ref["seeds4"], ref["res4"]
+    n = len(ds.traj_ids)
+    _log(f"  chunks of phase 4's {n} rows: two ways {chunk_bounds([(0, n)], 2)}, three ways "
+         f"{chunk_bounds([(0, n)], 3)}")
+    for devices in (two, three, "auto", None):
+        tag = f"phase 4 on device={devices!r}"
+        got, wall = fit_counted(tag, 1, lambda: fit_lsq(ds, eph, initial_orbits=seeds, device=devices))
+        _hold_rows(tag, res4, got)
+        _log(f"  {tag}: every row bitwise phase 4's, 2 + 1 K1 launches; {wall!r} s")
+    walls = {"one": [], "two": []}
+    for which in ("one", "two", "two", "one"):
+        _, wall = fit_counted(f"phase 4 timing ({which})", 1,
+                          lambda: fit_lsq(ds, eph, initial_orbits=seeds, device=dev if which == "one" else two))
+        walls[which].append(wall)
+    _log(f"  phase 4 warm walls in turns (one device, split, split, one device): "
+         f"one {walls['one']!r} s ({[n / w for w in walls['one']]!r} fits/s), "
+         f"two-way split {walls['two']!r} s ({[n / w for w in walls['two']]!r} fits/s)")
+
+    synth = ref["synth"]
+    got, wall = fit_counted("phase 8 split two ways", 1,
+                        lambda: fit_lsq(synth, eph, ref["headline"], ref["headline_cfg"], 7, device=two))
+    _hold_rows("phase 8 split two ways", ref["res8"], got)
+    _log(f"  phase 8 (mixed) split two ways: every row bitwise phase 8's, total_newton_iterations included; "
+         f"{wall!r} s")
+
+    datasets, tables = ref["data9"], ref["tables9"]
+    out, wall = fit_counted("phase 9 split two ways", len(datasets), lambda: list(fit_lsq_stream(
+        datasets, eph, ref["headline"], ref["headline_cfg"], 7, slim_fetch=True, as_table=True, minimal_fetch=True,
+        device=two)))
+    for k, ((d, table), ref_table) in enumerate(zip(out, tables)):
+        if d is not datasets[k] or not _identical_tables(ref_table, table):
+            raise AssertionError(f"phase 9 split two ways: dataset {k}'s table differs from phase 9's")
+    _log(f"  phase 9 stream (slim, table, minimal) split two ways: the {len(tables)} tables bitwise phase 9's; "
+         f"{wall!r} s")
+
+    ds10, esc10, fits10 = ref["ds10"], ref["esc10"], ref["fits10"]
+    got, wall = fit_counted("phase 10 escalating split two ways", fits10,
+                        lambda: fit_lsq_escalating(ds10, eph, ref["stages10"], 7, device=two))
+    _hold_rows("phase 10 escalating split two ways", esc10, got)
+    _log(f"  phase 10 fit_lsq_escalating split two ways: every row bitwise phase 10's; {wall!r} s")
+
+    lean, cfg = ref["lean"], ref["cfg"]
+    got, wall = fit_counted("phase 6 dispatch / finalize", 1,
+                        lambda: fit_lsq_finalize(fit_lsq_dispatch(synth, eph, lean, cfg, 7, device=dev)))
+    _hold_rows("fit_lsq_finalize(fit_lsq_dispatch(...))", ref["res6"], got)
+    pending, wall_t = fit_counted("phase 6 dispatch / finalize, table", 1,
+                              lambda: fit_lsq_dispatch(synth, eph, lean, cfg, 7, as_table=True, device=dev))
+    table = fit_lsq_finalize(pending)
+    if table is not fit_lsq_finalize(pending) or not _identical_tables(
+            LsqTable.from_results(synth.traj_ids, ref["res6"]), table):
+        raise AssertionError("fit_lsq_finalize(fit_lsq_dispatch(..., as_table=True)) differs from phase 6's table")
+    _log(f"  phase 6 through fit_lsq_dispatch / fit_lsq_finalize: bitwise phase 6's as a dict ({wall!r} s) and as "
+         f"a table ({wall_t!r} s)")
+    return launches
+
+
 def main():
     sys.path.insert(0, HERE)
     dev = phase_device()
@@ -2098,6 +2244,7 @@ def main():
     planets_err = phase_kernel_check_planets(dev, eph, synth)
     times["body"]["err"] = max(times["body"]["err"], planets_err)
     launches, cold4, warm4, res4 = phase_slice(dev, eph, ds, picks)
+    ref = dict(ds4=ds, seeds4=seeds_for(ds, picks), res4=res4, synth=synth)
     phase_cross_check(dev, eph, ds, picks)
 
     from outfit_tpu_torch import DifferentialCorrectionConfig, IODParams
@@ -2132,19 +2279,26 @@ def main():
     add(got)
     tag = "real-cadence 4096 IOD+LSQ"
     add(timed_phase(tag, phase_unseeded, dev, eph, ds, rich, DifferentialCorrectionConfig(), 7, tag)[0])
-    add(timed_phase("mixed synthetic 8192 x 12 IOD+LSQ", phase_mixed, dev, eph, synth, headline, headline_cfg, 7,
-                    warm6, summ6))
-    got, table9 = timed_phase("stream synthetic 3 x 8192 x 12", phase_stream, dev, eph, (400, 401, 402), headline,
-                              headline_cfg, 7)
+    got, res8 = timed_phase("mixed synthetic 8192 x 12 IOD+LSQ", phase_mixed, dev, eph, synth, headline, headline_cfg,
+                            7, warm6, summ6)
     add(got)
-    add(timed_phase("escalating real-cadence 3 x 4096", phase_escalating, dev, eph, (101, 102, 103),
-                    [(rc_lean, rc_lean_cfg), (rc_rich, headline_cfg)], 7))
+    got, data9, tables9 = timed_phase("stream synthetic 3 x 8192 x 12", phase_stream, dev, eph, (400, 401, 402),
+                                      headline, headline_cfg, 7)
+    add(got)
+    table9 = tables9[0]
+    stages10 = [(rc_lean, rc_lean_cfg), (rc_rich, headline_cfg)]
+    got, ds10, esc10, fits10 = timed_phase("escalating real-cadence 3 x 4096", phase_escalating, dev, eph,
+                                           (101, 102, 103), stages10, 7)
+    add(got)
+    ref.update(res6=res6, lean=lean, cfg=cfg, res8=res8, headline=headline, headline_cfg=headline_cfg, data9=data9,
+               tables9=tables9, ds10=ds10, esc10=esc10, fits10=fits10, stages10=stages10)
     add(timed_phase("N-body propagation 4096 x 30 d", phase_nbody, dev, eph))
     add(timed_phase("ephemeris generation 8192 x 64", phase_ephemeris, dev, eph, res6, table9))
     add(timed_phase("N-body correction synthetic 8192 x 12", phase_nbody_correction, dev, eph, synth, lean, res6, summ6))
     got, files_err = timed_phase("from files to orbits", phase_files, dev, eph, ds, picks, res4, (cold4, warm4), synth)
     add(got)
     times["body"]["err"] = max(times["body"]["err"], files_err)
+    add(timed_phase("fits split over a device list", phase_split, dev, eph, ref))
 
     kernels = [
         {

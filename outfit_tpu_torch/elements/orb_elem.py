@@ -17,7 +17,7 @@ import torch
 from outfit_tpu_torch.constants import GAUSS_GRAV_SQUARED
 from outfit_tpu_torch.kepler.angles import principal_angle as _wrap
 from outfit_tpu_torch.utils.linalg import cross3, norm3
-from outfit_tpu_torch.utils.tensors import as_floats
+from outfit_tpu_torch.utils.tensors import as_floats, lanewise
 
 _EPS = torch.finfo(torch.float64).eps
 
@@ -73,10 +73,10 @@ def ccek1(position, velocity):
     hu = h / torch.where(hn > 0.0, hn, 1.0)[..., None]
 
     sin_i = torch.sqrt(hu[..., 0] ** 2 + hu[..., 1] ** 2)
-    incl = _wrap(torch.atan2(sin_i, hu[..., 2]))
+    incl = _wrap(lanewise(torch.atan2, sin_i, hu[..., 2]))
     equatorial = sin_i <= _EPS_EQ
     incl = torch.where(equatorial, 0.0, incl)
-    node = torch.where(equatorial, 0.0, _wrap(torch.atan2(hu[..., 0], -hu[..., 1])))
+    node = torch.where(equatorial, 0.0, _wrap(lanewise(torch.atan2, hu[..., 0], -hu[..., 1])))
 
     # 2) rotate into the orbital frame: R = rotmt(i, X) @ rotmt(node, Z)
     ci, si = torch.cos(incl), torch.sin(incl)
@@ -106,7 +106,7 @@ def ccek1(position, velocity):
     e_cos = v2 * r / mu - 1.0
     ecc_k = torch.sqrt(e_sin * e_sin + e_cos * e_cos)
 
-    u = torch.atan2(e_sin, e_cos)  # eccentric anomaly
+    u = lanewise(torch.atan2, e_sin, e_cos)  # eccentric anomaly
     mean_anom = _wrap(u - ecc_k * torch.sin(u))
 
     x1 = torch.cos(u) - ecc_k
@@ -117,15 +117,15 @@ def ccek1(position, velocity):
     x1n, x2n = x1 / nrm, x2 / nrm
     sin_per = x1n * py - x2n * px
     cos_per = x1n * px + x2n * py
-    argp_k = _wrap(torch.atan2(sin_per, cos_per))
+    argp_k = _wrap(lanewise(torch.atan2, sin_per, cos_per))
 
     # --- cometary branch (parabolic & hyperbolic share the formulas) --------
     p_slr = h2 / mu  # semi-latus rectum
     ec_cos = p_slr / r - 1.0
     ec_sin = rv_dot * p_slr / (torch.where(hn > 0.0, hn, 1.0) * r)
-    nu = torch.atan2(ec_sin, ec_cos)
+    nu = lanewise(torch.atan2, ec_sin, ec_cos)
     ecc_c = torch.sqrt(ec_cos * ec_cos + ec_sin * ec_sin)
-    argp_c = _wrap(torch.atan2(py, px) - nu)
+    argp_c = _wrap(lanewise(torch.atan2, py, px) - nu)
 
     parabolic = torch.abs(inv_a) <= _EPS_PARAB
     near_parab_e = torch.where(

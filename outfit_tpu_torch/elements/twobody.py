@@ -21,7 +21,7 @@ import torch
 from outfit_tpu_torch.constants import DPI, GAUSS_GRAV_SQUARED
 from outfit_tpu_torch.elements.types import EquinoctialElements
 from outfit_tpu_torch.kepler.angles import principal_angle
-from outfit_tpu_torch.utils.tensors import as_float
+from outfit_tpu_torch.utils.tensors import as_float, lanewise
 
 _EPS = torch.finfo(torch.float64).eps
 
@@ -87,7 +87,7 @@ def solve_generalized_kepler(
 
     e2 = eq.h**2 + eq.k**2
     circular = e2 <= 100.0 * _EPS
-    varpi = torch.where(circular, 0.0, principal_angle(torch.atan2(eq.h, eq.k)))
+    varpi = torch.where(circular, 0.0, principal_angle(lanewise(torch.atan2, eq.h, eq.k)))
     inv_e = torch.where(circular, 0.0, 1.0 / torch.sqrt(torch.where(circular, 1.0, e2)))
     # x0 = pi + varpi:  sin(x0) = -sin(varpi) = -h/e,  cos(x0) = -k/e
     f = torch.broadcast_to(math.pi + varpi, shape)
@@ -151,7 +151,7 @@ def propagate_twobody(
     lam1 = eq.mean_longitude + n * dt
 
     e2 = h * h + k * k
-    varpi = torch.where(e2 > 100.0 * _EPS, principal_angle(torch.atan2(h, k)), 0.0)
+    varpi = torch.where(e2 > 100.0 * _EPS, principal_angle(lanewise(torch.atan2, h, k)), 0.0)
     lam1 = principal_angle(lam1)
     lam1 = torch.where(lam1 < varpi, lam1 + DPI, lam1)
 

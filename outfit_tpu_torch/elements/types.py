@@ -11,12 +11,37 @@ Equinoctial [a, h, k, p, q, lambda], Cometary [q, e, i, Omega, omega, nu].
 import math
 from typing import NamedTuple, Union
 
+import numpy as np
 import torch
 
 from outfit_tpu_torch.kepler.angles import principal_angle
 from outfit_tpu_torch.utils.linalg import matmul_small
+from outfit_tpu_torch.utils.tensors import as_floats, lanewise
 
 _EPS_REG = 1.0e-12  # near-circular / near-equatorial regularization threshold
+
+_RAD_TO_DEG = 180.0 / 3.141592653589793
+
+
+def _host(x):
+    return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+
+
+def _fmt_scalar(x):
+    a = _host(x)
+    return f"{float(a):.6f}" if a.size == 1 else f"<batch {a.shape}>"
+
+
+def _fmt_angle(x):
+    a = _host(x)
+    if a.size != 1:
+        return f"<batch {a.shape}>"
+    v = float(a)
+    return f"{v:.6f} rad ({v * _RAD_TO_DEG:.6f}°)"
+
+
+def _stack(*fields):
+    return torch.stack(as_floats(*fields), dim=-1)
 
 
 class KeplerianElements(NamedTuple):
@@ -28,6 +53,26 @@ class KeplerianElements(NamedTuple):
     periapsis_argument: torch.Tensor
     mean_anomaly: torch.Tensor
 
+    @property
+    def vector(self):
+        return _stack(
+            self.semi_major_axis, self.eccentricity, self.inclination, self.ascending_node_longitude,
+            self.periapsis_argument, self.mean_anomaly,
+        )
+
+    def __str__(self):
+        """Parity: KeplerianElements Display (keplerian_element.rs:429-468)."""
+        return (
+            f"Elements @ epoch (MJD): {_fmt_scalar(self.reference_epoch)}\n"
+            "-------------------------------------------\n"
+            f"  a   (semi-major axis)       = {_fmt_scalar(self.semi_major_axis)} AU\n"
+            f"  e   (eccentricity)          = {_fmt_scalar(self.eccentricity)}\n"
+            f"  i   (inclination)           = {_fmt_angle(self.inclination)}\n"
+            f"  Ω   (longitude of node)     = {_fmt_angle(self.ascending_node_longitude)}\n"
+            f"  ω   (argument of periapsis) = {_fmt_angle(self.periapsis_argument)}\n"
+            f"  M   (mean anomaly)          = {_fmt_angle(self.mean_anomaly)}\n"
+        )
+
 
 class EquinoctialElements(NamedTuple):
     reference_epoch: torch.Tensor
@@ -38,8 +83,29 @@ class EquinoctialElements(NamedTuple):
     q: torch.Tensor  # tan(i/2) cos Omega
     mean_longitude: torch.Tensor
 
+    @property
+    def vector(self):
+        return _stack(self.semi_major_axis, self.h, self.k, self.p, self.q, self.mean_longitude)
+
+    @classmethod
+    def from_vector(cls, epoch, vec):
+        return cls(epoch, *[vec[..., i] for i in range(6)])
+
     def eccentricity(self):
         return torch.sqrt(self.h**2 + self.k**2)
+
+    def __str__(self):
+        """Parity: EquinoctialElements Display (equinoctial_element.rs:1170-1208)."""
+        return (
+            f"Elements @ epoch (MJD): {_fmt_scalar(self.reference_epoch)}\n"
+            "------------------------------------------------\n"
+            f"  a   (semi-major axis)            = {_fmt_scalar(self.semi_major_axis)} AU\n"
+            f"  h   (e·sin(Ω+ω))                 = {_fmt_scalar(self.h)}\n"
+            f"  k   (e·cos(Ω+ω))                 = {_fmt_scalar(self.k)}\n"
+            f"  p   (tan(i/2)·sinΩ)              = {_fmt_scalar(self.p)}\n"
+            f"  q   (tan(i/2)·cosΩ)              = {_fmt_scalar(self.q)}\n"
+            f"  λ   (mean longitude)             = {_fmt_angle(self.mean_longitude)}\n"
+        )
 
 
 class CometaryElements(NamedTuple):
@@ -50,6 +116,26 @@ class CometaryElements(NamedTuple):
     ascending_node_longitude: torch.Tensor
     periapsis_argument: torch.Tensor
     true_anomaly: torch.Tensor
+
+    @property
+    def vector(self):
+        return _stack(
+            self.perihelion_distance, self.eccentricity, self.inclination, self.ascending_node_longitude,
+            self.periapsis_argument, self.true_anomaly,
+        )
+
+    def __str__(self):
+        """Parity: CometaryElements Display (cometary_element.rs:508-556)."""
+        return (
+            f"Elements @ epoch (MJD): {_fmt_scalar(self.reference_epoch)}\n"
+            "------------------------------------------------\n"
+            f"  q   (perihelion distance)     = {_fmt_scalar(self.perihelion_distance)} AU\n"
+            f"  e   (eccentricity)            = {_fmt_scalar(self.eccentricity)}\n"
+            f"  i   (inclination)             = {_fmt_angle(self.inclination)}\n"
+            f"  Ω   (longitude of node)       = {_fmt_angle(self.ascending_node_longitude)}\n"
+            f"  ω   (argument of periapsis)   = {_fmt_angle(self.periapsis_argument)}\n"
+            f"  ν   (true anomaly)            = {_fmt_angle(self.true_anomaly)}\n"
+        )
 
 
 class EquinoctialLimits(NamedTuple):
@@ -90,9 +176,9 @@ def keplerian_to_equinoctial(kep: KeplerianElements) -> EquinoctialElements:
 
 def equinoctial_to_keplerian(eq: EquinoctialElements) -> KeplerianElements:
     ecc = torch.sqrt(eq.h**2 + eq.k**2)
-    dig = torch.where(ecc < _EPS_REG, 0.0, torch.atan2(eq.h, eq.k))
+    dig = torch.where(ecc < _EPS_REG, 0.0, lanewise(torch.atan2, eq.h, eq.k))
     tgi2 = torch.sqrt(eq.p**2 + eq.q**2)
-    node = torch.where(tgi2 < _EPS_REG, 0.0, torch.atan2(eq.p, eq.q))
+    node = torch.where(tgi2 < _EPS_REG, 0.0, lanewise(torch.atan2, eq.p, eq.q))
     incl = 2.0 * torch.atan(tgi2)
     argp = principal_angle(dig - node)
     mean_anom = principal_angle(eq.mean_longitude - dig)
@@ -114,8 +200,8 @@ def cometary_to_keplerian(com: CometaryElements) -> KeplerianElements:
     t = torch.tan(0.5 * com.true_anomaly)
     # hyperbolic branch: H = 2 atanh(s tan(nu/2)), M = e sinh H - H
     x = torch.clamp(s * t, -1.0 + 1e-15, 1.0 - 1e-15)
-    hh = 2.0 * torch.atanh(x)
-    m_hyp = e * torch.sinh(hh) - hh
+    hh = 2.0 * lanewise(torch.atanh, x)
+    m_hyp = e * lanewise(torch.sinh, hh) - hh
     # elliptic branch: E = 2 atan(s tan(nu/2)), M = E - e sin E
     ee = 2.0 * torch.atan(s * t)
     m_ell = ee - e * torch.sin(ee)
@@ -218,7 +304,7 @@ def jacobian_cometary_to_keplerian(com: CometaryElements):
     da_de = qd / one_me**2
 
     dm_de_ell = -sn * torch.sqrt(torch.abs(1.0 - e * e)) * (2.0 + e * cn) / denom2
-    dm_dnu_ell = torch.abs(1.0 - e * e) ** 1.5 / denom2
+    dm_dnu_ell = lanewise(torch.pow, torch.abs(1.0 - e * e), 1.5) / denom2
     e2m1 = torch.sqrt(torch.abs(e * e - 1.0))
     dm_de_hyp = sn * e2m1 * (2.0 + e * cn) / denom2
     dm_dnu_hyp = e2m1**3 / denom2

@@ -25,7 +25,7 @@ from outfit_tpu_torch.elements.types import EquinoctialElements
 from outfit_tpu_torch.ephemeris.config import AberrationOrder
 from outfit_tpu_torch.propagator.config import PropagatorKind
 from outfit_tpu_torch.utils.linalg import norm3, rotate3
-from outfit_tpu_torch.utils.tensors import as_f64
+from outfit_tpu_torch.utils.tensors import as_f64, lanewise
 
 
 class ApparentPosition(NamedTuple):
@@ -115,10 +115,10 @@ def compute_apparent(
         eqb, epochs, ast_pos, ast_vel, obs_pos_equ, aberration
     )
     x, y, z = topo[..., 0], topo[..., 1], topo[..., 2]
-    rho_xy = torch.hypot(x, y)
+    rho_xy = lanewise(torch.hypot, x, y)
     rho = norm3(topo)
-    ra = torch.remainder(torch.atan2(y, x), DPI)
-    dec = torch.atan2(z, rho_xy)
+    ra = torch.remainder(lanewise(torch.atan2, y, x), DPI)
+    dec = lanewise(torch.atan2, z, rho_xy)
 
     r_helio = norm3(ast_pos)
     r_obs = norm3(obs_pos_equ)

@@ -15,14 +15,17 @@ reference's ``FitIOD`` trait (``obs_dataset_api.rs``) and
 
 Every trajectory's lanes form one dense (trajectory x triplet x
 realization) batch on ``device``; ``IODParams.batch_size`` splits it into
-trajectory-aligned chunks of at most that many lanes.  The JAX package's
-power-of-two buckets, width groups, sync-free screen, fetch packing and
-``mesh`` exist for XLA and its relay and are left out: lanes are
-independent, so none of them changes a result.
+trajectory-aligned chunks of at most that many lanes.  ``device`` may name
+several devices (the JAX package's ``mesh``): each fits a contiguous chunk
+of the trajectories (:class:`_IodBatch`).  The JAX package's power-of-two
+buckets, width groups, sync-free screen and fetch packing exist for XLA and
+its relay and are left out: lanes are independent, so none of them changes
+a result.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -46,6 +49,7 @@ from outfit_tpu_torch.iod.scoring import rms_orbit_error
 from outfit_tpu_torch.iod.triplets import _enum_device
 from outfit_tpu_torch.observations.error_model import ErrorModel
 from outfit_tpu_torch.observer.cache import ObserverCache
+from outfit_tpu_torch.parallel.sharding import chunk_bounds, fit_devices, map_devices, split_bounds
 from outfit_tpu_torch.time.scales import Ut1Provider
 from outfit_tpu_torch.utils.linalg import rotate3
 from outfit_tpu_torch.utils.tensors import resolve_device
@@ -356,6 +360,180 @@ def _chunk_spans(n_traj: int, lanes_per_traj: int, batch_size: int):
     return [(s, min(s + per, n_traj)) for s in range(0, n_traj, per)]
 
 
+class _IodBatch:
+    """The IOD of one prepared dataset over a device list.  What sees the
+    whole batch runs once here: the padded layout, the screen of
+    unresolvable stations, the triplet enumeration (each device on a share
+    of the rows; it is exact integer work) whose counts fix the kept rows,
+    their lane chunks and the chunks' widths, and the chunks of the kept
+    rows per device (:func:`chunk_bounds`).  :meth:`part` then fits one
+    device's kept rows.  A row's lanes see the same chunk width, draws and
+    alignment in their tensors on any split, so each row's result is the
+    one a single device gives."""
+
+    def __init__(self, dataset, params: IODParams, seed, layout, devices, draws=None, slim=False):
+        self.dataset, self.params, self.seed, self.slim = dataset, params, seed, slim
+        self.valid, self.glob = layout
+        self.results: Dict[str, FitResult] = {}
+        Tall = dataset.n_trajectories
+        self.n_real = params.n_noise_realizations + 1
+
+        def infeasible(arc, n_obs):
+            return str(NoFeasibleTriplets(arc, n_obs, params.dt_min, params.dt_max_triplet))
+
+        rows = np.zeros(0, np.int64)
+        if len(dataset.mjd_tt) == 0 or Tall == 0:
+            self.results = {tid: FitResult(tid, ok=False, error=infeasible(0.0, 0)) for tid in dataset.traj_ids}
+        else:
+            self.counts = self.valid.sum(axis=1)
+            self.epochs_pad = np.where(self.valid, dataset.mjd_tt[self.glob], 0.0)
+            arc = np.where(
+                self.counts > 0,
+                self.epochs_pad[np.arange(Tall), np.maximum(self.counts - 1, 0)] - self.epochs_pad[:, 0], 0.0,
+            )
+            # trajectories observed from an unresolvable station are errors,
+            # not silently geocentric fits
+            unk = np.fromiter((o.unknown for o in dataset.observers), bool, count=len(dataset.observers))
+            bad_traj = np.zeros(Tall, bool)
+            if unk.any():
+                bad_obs = unk[dataset.observer_index]
+                bad_traj = np.bincount(dataset.traj_index[bad_obs], minlength=Tall).astype(bool)
+                for t in np.nonzero(bad_traj)[0]:
+                    sel = (dataset.traj_index == t) & bad_obs
+                    codes = sorted({dataset.observers[i].code or "?" for i in np.unique(dataset.observer_index[sel])})
+                    tid = dataset.traj_ids[t]
+                    self.results[tid] = FitResult(tid, ok=False, error=f"UnknownObservatory({', '.join(codes)})")
+            rows = np.nonzero(~bad_traj)[0]
+
+        # --- triplet enumeration, each device on a share of the rows --------
+        shares = [rows[a:b] for a, b in split_bounds(rows.size, len(devices))]
+        enum = map_devices(devices, self._enumerate, shares)
+        kt = np.concatenate([k for _, _, k in enum])
+        for t in rows[kt == 0]:
+            tid = dataset.traj_ids[t]
+            self.results[tid] = FitResult(tid, ok=False, error=infeasible(arc[t], int(self.counts[t])))
+        self.kept = rows[kt > 0]
+        self.kt = kt[kt > 0]
+        # each share's (trips, ktrips) of its kept rows, on its device, and
+        # where its rows start in the kept rows
+        self.trips, starts = [], [0]
+        for trips, ktrips, k in enum:
+            if (k > 0).any():
+                sel = torch.as_tensor(np.nonzero(k > 0)[0], device=trips.device)
+                self.trips.append((trips[sel], ktrips[sel]))
+                starts.append(starts[-1] + sel.numel())
+        self.trips_start = starts
+        # trajectory-aligned chunks of the kept rows, each at its own width
+        # (left-packed: the longest row of the chunk)
+        self.spans = [
+            (s, e, int(self.counts[self.kept[s:e]].max()))
+            for s, e in _chunk_spans(self.kept.size, params.max_triplets * self.n_real, params.batch_size)
+        ] if self.kept.size else []
+        self.chunks = chunk_bounds([(s, e) for s, e, _ in self.spans], len(devices))
+        # Monte-Carlo draws: fixed shape (max_triplets, n_real, 3, 2) per
+        # trajectory, the first ktrips rows used
+        self.z = None
+        if draws is not None and self.kept.size:
+            self.z = np.asarray(draws([dataset.traj_ids[t] for t in self.kept]))
+
+    def _enumerate(self, device, rows):
+        if not rows.size:
+            return None, None, np.zeros(0, np.int64)
+        p = self.params
+        trips, ktrips = _enum_device(
+            torch.as_tensor(self.epochs_pad[rows], dtype=torch.float64, device=device),
+            torch.as_tensor(self.counts[rows], dtype=torch.int64, device=device),
+            dt_min=p.dt_min,
+            dt_max=p.dt_max_triplet,
+            dtw=p.optimal_interval_time,
+            max_obs=p.max_obs_for_triplets,
+            max_triplets=p.max_triplets,
+        )
+        return trips, ktrips, ktrips.cpu().numpy()
+
+    def _kept_trips(self, ka, kb, device):
+        """(trips, ktrips) of kept rows [ka, kb) on ``device``."""
+        parts = []
+        for (trips, ktrips), s, e in zip(self.trips, self.trips_start[:-1], self.trips_start[1:]):
+            lo, hi = max(ka, s), min(kb, e)
+            if lo < hi:
+                parts.append((trips[lo - s:hi - s].to(device), ktrips[lo - s:hi - s].to(device)))
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    def part(self, device, i, base) -> Dict[str, FitResult]:
+        """The results of device ``i``'s chunk of the kept rows, fitted on
+        ``device``; ``base()`` gives :func:`base_arrays` there."""
+        ka, kb = self.chunks[i]
+        if ka >= kb:
+            return {}
+        i64 = dict(dtype=torch.int64, device=device)
+        kept, kt = self.kept[ka:kb], self.kt[ka:kb]
+        trips, ktrips = self._kept_trips(ka, kb, device)
+        kept_tids = [self.dataset.traj_ids[t] for t in kept]
+        if self.z is None:
+            keys = torch.as_tensor(trajectory_keys(self.seed, kept_tids), **i64)
+            z = draw_noise(keys, self.params.max_triplets, self.n_real)
+        else:
+            z = torch.as_tensor(self.z[ka:kb], dtype=torch.float64, device=device)
+
+        outs = []
+        for s, e, w in self.spans:
+            lo, hi = max(s, ka) - ka, min(e, kb) - ka
+            if lo >= hi:
+                continue
+            out = _iod_kernel_dense(
+                base(),
+                torch.as_tensor(self.glob[kept[lo:hi], :w], **i64),
+                torch.as_tensor(self.valid[kept[lo:hi], :w], device=device),
+                torch.as_tensor(self.counts[kept[lo:hi]], **i64),
+                z[lo:hi],
+                trips[lo:hi],
+                ktrips[lo:hi],
+                self.params,
+            )
+            if self.slim:
+                out = (out[0].float(), out[1], out[2].float()) + tuple(out[3:])
+            outs.append([o.cpu().numpy() for o in out])
+        rms, kind, el, eqv, epoch, corrected = (np.concatenate(c) for c in zip(*outs))
+        rms, el = rms.astype(np.float64, copy=False), el.astype(np.float64, copy=False)
+
+        results = {}
+        finite_l = np.isfinite(rms).tolist()
+        rms_l, corr_l, epoch_l, kind_l = rms.tolist(), corrected.tolist(), epoch.tolist(), kind.tolist()
+        for j, tid in enumerate(kept_tids):
+            if not finite_l[j]:
+                results[tid] = FitResult(tid, ok=False, error=str(NoViableOrbit(int(kt[j]) * self.n_real)))
+                continue
+            results[tid] = FitResult(
+                tid, ok=True, rms=rms_l[j], corrected=bool(corr_l[j]), epoch=epoch_l[j],
+                kind=kind_l[j], elements=el[j], equinoctial=eqv[j],
+            )
+        return results
+
+    def fit(self, devices, bases):
+        """Every row's result, in dataset order: the kept rows fitted on
+        ``devices`` (``bases(device)`` gives :func:`base_arrays` there)."""
+        for part in map_devices(devices, lambda d, i: self.part(d, i, lambda: bases(d)), range(len(devices))):
+            self.results.update(part)
+        return {tid: self.results[tid] for tid in self.dataset.traj_ids}
+
+
+def device_bases(dataset, cache):
+    """``bases(device)``: :func:`base_arrays` of ``dataset`` on a device,
+    uploaded once per device by whichever worker first asks."""
+    made, lock = {}, threading.Lock()
+
+    def bases(device):
+        with lock:
+            if device not in made:
+                made[device] = base_arrays(dataset, cache, device)
+            return made[device]
+
+    return bases
+
+
 def _fit_full_iod(
     dataset, ephem, params, seed, ut1, error_model, cache, device, draws=None, slim=False,
 ) -> Dict[str, FitResult]:
@@ -367,104 +545,12 @@ def _fit_full_iod(
     equinoctial seed and the epoch stay float64), the JAX package's
     ``slim_fetch`` contract."""
     params = params.validated()
-    device = resolve_device(device)
+    devices = fit_devices(device)
     prepare_dataset(dataset, params.gap_max, error_model)
     if cache is None:
-        cache = ObserverCache.build(dataset, ephem, ut1, device=device)
-
-    results: Dict[str, FitResult] = {}
-    Tall = dataset.n_trajectories
-
-    def infeasible(arc, n_obs):
-        return str(NoFeasibleTriplets(arc, n_obs, params.dt_min, params.dt_max_triplet))
-
-    if len(dataset.mjd_tt) == 0 or Tall == 0:
-        return {tid: FitResult(tid, ok=False, error=infeasible(0.0, 0)) for tid in dataset.traj_ids}
-
-    valid_np, glob_np = _padded_layout(dataset)
-    counts = valid_np.sum(axis=1)
-    epochs_pad = np.where(valid_np, dataset.mjd_tt[glob_np], 0.0)
-    arc = np.where(
-        counts > 0, epochs_pad[np.arange(Tall), np.maximum(counts - 1, 0)] - epochs_pad[:, 0], 0.0
-    )
-
-    # trajectories observed from an unresolvable station are errors, not
-    # silently geocentric fits
-    unk = np.fromiter((o.unknown for o in dataset.observers), bool, count=len(dataset.observers))
-    bad_traj = np.zeros(Tall, bool)
-    if unk.any():
-        bad_obs = unk[dataset.observer_index]
-        bad_traj = np.bincount(dataset.traj_index[bad_obs], minlength=Tall).astype(bool)
-        for t in np.nonzero(bad_traj)[0]:
-            sel = (dataset.traj_index == t) & bad_obs
-            codes = sorted({dataset.observers[i].code or "?" for i in np.unique(dataset.observer_index[sel])})
-            tid = dataset.traj_ids[t]
-            results[tid] = FitResult(tid, ok=False, error=f"UnknownObservatory({', '.join(codes)})")
-
-    # --- triplet enumeration on the device ---------------------------------
-    rows = np.nonzero(~bad_traj)[0]
-    i64 = dict(dtype=torch.int64, device=device)
-    trips, ktrips = _enum_device(
-        torch.as_tensor(epochs_pad[rows], dtype=torch.float64, device=device),
-        torch.as_tensor(counts[rows], **i64),
-        dt_min=params.dt_min,
-        dt_max=params.dt_max_triplet,
-        dtw=params.optimal_interval_time,
-        max_obs=params.max_obs_for_triplets,
-        max_triplets=params.max_triplets,
-    )
-    kt = ktrips.cpu().numpy()
-    for t in rows[kt == 0]:
-        tid = dataset.traj_ids[t]
-        results[tid] = FitResult(tid, ok=False, error=infeasible(arc[t], int(counts[t])))
-    has_trips = kt > 0
-    kept = rows[has_trips]
-    if kept.size:
-        kept_t = torch.as_tensor(np.nonzero(has_trips)[0], **i64)
-        trips, ktrips = trips[kept_t], ktrips[kept_t]
-        kt = kt[has_trips]
-        kept_tids = [dataset.traj_ids[t] for t in kept]
-
-        # Monte-Carlo draws: fixed shape (max_triplets, n_real, 3, 2) per
-        # trajectory, the first ktrips rows used
-        n_real = params.n_noise_realizations + 1
-        if draws is None:
-            keys = torch.as_tensor(trajectory_keys(seed, kept_tids), **i64)
-            z = draw_noise(keys, params.max_triplets, n_real)
-        else:
-            z = torch.as_tensor(np.asarray(draws(kept_tids)), dtype=torch.float64, device=device)
-
-        base = base_arrays(dataset, cache, device)
-        outs = []
-        for s, e in _chunk_spans(kept.size, params.max_triplets * n_real, params.batch_size):
-            w = int(counts[kept[s:e]].max())  # left-packed: the chunk's width
-            out = _iod_kernel_dense(
-                base,
-                torch.as_tensor(glob_np[kept[s:e], :w], **i64),
-                torch.as_tensor(valid_np[kept[s:e], :w], device=device),
-                torch.as_tensor(counts[kept[s:e]], **i64),
-                z[s:e],
-                trips[s:e],
-                ktrips[s:e],
-                params,
-            )
-            if slim:
-                out = (out[0].float(), out[1], out[2].float()) + tuple(out[3:])
-            outs.append([o.cpu().numpy() for o in out])
-        rms, kind, el, eqv, epoch, corrected = (np.concatenate(c) for c in zip(*outs))
-        rms, el = rms.astype(np.float64, copy=False), el.astype(np.float64, copy=False)
-
-        finite_l = np.isfinite(rms).tolist()
-        rms_l, corr_l, epoch_l, kind_l = rms.tolist(), corrected.tolist(), epoch.tolist(), kind.tolist()
-        for i, tid in enumerate(kept_tids):
-            if not finite_l[i]:
-                results[tid] = FitResult(tid, ok=False, error=str(NoViableOrbit(int(kt[i]) * n_real)))
-                continue
-            results[tid] = FitResult(
-                tid, ok=True, rms=rms_l[i], corrected=bool(corr_l[i]), epoch=epoch_l[i],
-                kind=kind_l[i], elements=el[i], equinoctial=eqv[i],
-            )
-    return {tid: results[tid] for tid in dataset.traj_ids}
+        cache = ObserverCache.build(dataset, ephem, ut1, device=devices[0])
+    batch = _IodBatch(dataset, params, seed, _padded_layout(dataset), devices, draws, slim)
+    return batch.fit(devices, device_bases(dataset, cache))
 
 
 def fit_full_iod(
@@ -482,8 +568,13 @@ def fit_full_iod(
     Parity: ``fit_full_iod`` (obs_dataset_api.rs:145-172).  ``seed`` and the
     trajectory id fix each trajectory's Monte-Carlo noise, so results do
     not depend on the dataset's other trajectories, their order, or
-    ``params.batch_size``.  ``device``: where the observer cache and the
-    IOD run; default ``"cuda"`` when a card is present, else ``"cpu"``.
+    ``params.batch_size``.  ``device``: one device; a list of devices
+    (names may repeat), each fitting a contiguous chunk of the trajectories
+    in a worker thread of its own, the observer cache built once on the
+    first, every result bitwise the single-device one; ``"auto"``, every
+    visible CUDA card; None, ``"auto"`` when a card is present, else the
+    CPU.  The parameters are the JAX package's, in its order, with
+    ``device`` last in place of ``mesh``.
     """
     return _fit_full_iod(dataset, ephem, params, seed, ut1, error_model, cache, device)
 
@@ -540,7 +631,9 @@ def fit_iod(
         ds = ObsDataset()
         for o in observations:
             ds.push_observation(traj_id, o.mjd_tt, o.ra, o.dec, o.ra_error, o.dec_error, o.observer)
-    return fit_full_iod(ds, ephem, params, seed=seed, ut1=ut1, error_model=error_model, device=device)[traj_id]
+    return fit_full_iod(
+        ds, ephem, params, seed=seed, ut1=ut1, error_model=error_model, device=resolve_device(device)
+    )[traj_id]
 
 
 #: Reference-name aliases (constants.rs:134-195, gauss_result.rs:98-216):

@@ -13,7 +13,7 @@ per trip.  Roots are returned sorted by real part unless ``sort=False``.
 import numpy as np
 import torch
 
-from outfit_tpu_torch.utils.tensors import as_floats, device_constant
+from outfit_tpu_torch.utils.tensors import as_floats, device_constant, lanewise
 
 #: initial circle: 8 angles with a Bini-style offset of 0.4
 _THETA = 2.0 * np.pi * np.arange(8) / 8.0 + 0.4
@@ -41,6 +41,10 @@ class ComplexRoots:
     def __init__(self, re, im):
         self.real = re
         self.imag = im
+
+    @property
+    def shape(self):
+        return self.real.shape
 
 
 def _cmul(ar, ai, br, bi):
@@ -82,7 +86,7 @@ def aberth_deg8(c0, c3, c6, max_iter: int = 50, eps: float = 1e-6, active=None, 
         )
 
     # initial circle: radius |c0|^(1/8) floored at 0.3, angular offset 0.4
-    r = torch.clamp(torch.abs(c0[..., 0]) ** 0.125, min=0.3)[..., None]
+    r = torch.clamp(lanewise(torch.pow, torch.abs(c0[..., 0]), 0.125), min=0.3)[..., None]
     zr = r * device_constant(_COS_THETA, dev, dtype)
     zi = r * device_constant(_SIN_THETA, dev, dtype)
 

@@ -22,6 +22,7 @@ from outfit_tpu_torch.constants import DPI, ROT_ECLMJ2000_TO_EQUMJ2000, VLIGHT_A
 from outfit_tpu_torch.elements.twobody import propagate_twobody
 from outfit_tpu_torch.elements.types import EquinoctialElements
 from outfit_tpu_torch.utils.linalg import norm3, rotate3
+from outfit_tpu_torch.utils.tensors import lanewise
 
 
 def correct_aberration_first_order(relative, velocity):
@@ -34,8 +35,8 @@ def apparent_radec(ast_pos_equ, ast_vel_equ, obs_pos_equ):
     """Topocentric (RA, Dec) with first-order aberration, batched."""
     cor = correct_aberration_first_order(ast_pos_equ - obs_pos_equ, ast_vel_equ)
     x, y, z = cor[..., 0], cor[..., 1], cor[..., 2]
-    dec = torch.atan2(z, torch.hypot(x, y))
-    ra = torch.remainder(torch.atan2(y, x), DPI)
+    dec = lanewise(torch.atan2, z, lanewise(torch.hypot, x, y))
+    ra = torch.remainder(lanewise(torch.atan2, y, x), DPI)
     return ra, dec
 
 

@@ -30,6 +30,17 @@ def downsample_uniform_with_edges(n: int, max_keep: int) -> np.ndarray:
     return i * (n - 1) // (max_keep - 1)
 
 
+def triplet_weight(t1, t2, t3, dtw: float):
+    """float64 spacing weight: s(dt) = dtw/dt if dt <= dtw else 1 + dt/dtw
+    (mod.rs:148-274) summed over both gaps, one division per gap."""
+    inv_dtw = 1.0 / dtw
+
+    def s_gap(dt):
+        return np.where(dt <= dtw, dtw / np.maximum(dt, 1e-300), 1.0 + dt * inv_dtw)
+
+    return s_gap(t2 - t1) + s_gap(t3 - t2)
+
+
 #: tiny f32 floor guarding the s_gap division (1e-300 underflows in f32)
 _W32_TINY = np.float32(1e-38)
 
@@ -149,6 +160,27 @@ def generate_triplet_indices_batch(
         trips[sl, :, 2] = np.take_along_axis(kp, ki[order], axis=1)
         ktrips[sl] = kc
     return trips, ktrips
+
+
+def generate_triplet_indices_device(
+    epochs_pad, counts, dt_min: float, dt_max: float, optimal_interval: float, max_obs: int, max_triplets: int,
+    m_cap: int = None,
+):
+    """:func:`generate_triplet_indices_batch` on the device of
+    ``epochs_pad`` (T, n_max) with ``counts`` (T,) (numpy arrays are taken
+    on the CPU): the same best-K set in the same order.  Returns (trips
+    (T, K, 3), ktrips (T,)), int64 on that device."""
+    epochs_pad = torch.as_tensor(epochs_pad, dtype=torch.float64)
+    return _enum_device(
+        epochs_pad,
+        torch.as_tensor(counts, device=epochs_pad.device),
+        dt_min=float(dt_min),
+        dt_max=float(dt_max),
+        dtw=float(optimal_interval),
+        max_obs=int(max_obs),
+        max_triplets=int(max_triplets),
+        m_cap=None if m_cap is None else int(m_cap),
+    )
 
 
 def _enum_device(

@@ -1,6 +1,6 @@
 """Universal-variable Kepler solver, Stumpff functions and angle helpers."""
 
-from outfit_tpu_torch.kepler.angles import principal_angle
+from outfit_tpu_torch.kepler.angles import angle_diff, principal_angle
 from outfit_tpu_torch.kepler.stumpff import s_funct
 from outfit_tpu_torch.kepler.universal import (
     KeplerParams,
@@ -14,6 +14,7 @@ from outfit_tpu_torch.kepler.universal import (
 __all__ = [
     "KeplerParams",
     "SolverConfig",
+    "angle_diff",
     "prelim_kepuni",
     "principal_angle",
     "propagate_universal",

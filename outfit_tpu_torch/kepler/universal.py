@@ -33,7 +33,7 @@ from outfit_tpu_torch.constants import GAUSS_GRAV_SQUARED
 from outfit_tpu_torch.kepler.angles import principal_angle
 from outfit_tpu_torch.kepler.stumpff import halving_count, s_funct
 from outfit_tpu_torch.utils.linalg import cross3, norm3
-from outfit_tpu_torch.utils.tensors import as_float, as_floats
+from outfit_tpu_torch.utils.tensors import as_float, as_floats, lanewise
 
 _EPS = torch.finfo(torch.float64).eps
 
@@ -146,7 +146,7 @@ def _prelim_hyperbolic(p: KeplerParams, cfg: SolverConfig):
     )
     f0 = torch.where(p.sig0 < 0.0, -f0, f0)
 
-    ell0 = p.e0 * torch.sinh(f0) - f0
+    ell0 = p.e0 * lanewise(torch.sinh, f0) - f0
     target_m = ell0 + n * p.dt
 
     f = torch.zeros_like(target_m)
@@ -154,8 +154,8 @@ def _prelim_hyperbolic(p: KeplerParams, cfg: SolverConfig):
     for _ in range(cfg.max_iter_prelim):
         small = torch.abs(f) < 15.0
         fs = torch.clamp(f, -15.0, 15.0)
-        res = p.e0 * torch.sinh(fs) - fs - target_m
-        dres = p.e0 * torch.cosh(fs) - 1.0
+        res = p.e0 * lanewise(torch.sinh, fs) - fs - target_m
+        dres = p.e0 * lanewise(torch.cosh, fs) - 1.0
         step = -res / torch.where(torch.abs(dres) > _EPS, dres, _EPS)
         cand = f + step
         newton_f = torch.where(f * cand < 0.0, 0.5 * f, cand)
@@ -182,7 +182,7 @@ def _prelim_parabolic(p: KeplerParams):
     disc = half_q * half_q + (pp / 3.0) ** 3
 
     def cbrt(x):
-        return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+        return torch.sign(x) * lanewise(torch.pow, torch.abs(x), 1.0 / 3.0)
 
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
     root_single = cbrt(-half_q + sq) + cbrt(-half_q - sq) - shift

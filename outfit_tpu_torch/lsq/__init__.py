@@ -2,8 +2,11 @@
 
 from outfit_tpu_torch.lsq.api import (
     LsqResult,
+    PendingLsq,
     fit_lsq,
+    fit_lsq_dispatch,
     fit_lsq_escalating,
+    fit_lsq_finalize,
     fit_lsq_stream,
     fit_lsq_stream_escalating,
 )
@@ -15,8 +18,11 @@ __all__ = [
     "LsqResult",
     "LsqTable",
     "OutlierRejectionConfig",
+    "PendingLsq",
     "fit_lsq",
+    "fit_lsq_dispatch",
     "fit_lsq_escalating",
+    "fit_lsq_finalize",
     "fit_lsq_stream",
     "fit_lsq_stream_escalating",
 ]

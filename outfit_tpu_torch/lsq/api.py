@@ -17,7 +17,10 @@ or mixed precision):
   ``as_table=True``, a columnar :class:`outfit_tpu_torch.lsq.table.LsqTable`,
 * the service modes: :func:`fit_lsq_stream` (datasets fitted one by one
   as the caller asks for them), :func:`fit_lsq_escalating` and
-  :func:`fit_lsq_stream_escalating` (failures refitted with richer stages).
+  :func:`fit_lsq_stream_escalating` (failures refitted with richer stages),
+  and :func:`fit_lsq_dispatch` / :func:`fit_lsq_finalize`,
+* ``device`` naming several devices (the JAX package's ``mesh``): each fits
+  a contiguous chunk of the trajectories (:func:`_fit_lsq`).
 
 The JAX package's power-of-two trajectory and observation buckets exist to
 bound its recompiles; PyTorch runs eagerly, so the batch here is exactly
@@ -47,22 +50,23 @@ from outfit_tpu_torch.errors import (
 )
 from outfit_tpu_torch.iod.api import (
     FitResult,
-    _fit_full_iod,
     _gather_bias,
     _gather_obs_tables,
+    _IodBatch,
     _padded_layout,
-    base_arrays,
+    device_bases,
     prepare_dataset,
 )
 from outfit_tpu_torch.iod.params import IODParams
 from outfit_tpu_torch.lsq.config import DifferentialCorrectionConfig
 from outfit_tpu_torch.lsq.iteration import SEL_ACTIVE, ObsArrays
-from outfit_tpu_torch.lsq.loop import STATUS_OK, check_supported, run_differential_correction
+from outfit_tpu_torch.lsq.loop import STATUS_OK, check_supported, differential_correction
 from outfit_tpu_torch.observations.error_model import ErrorModel
 from outfit_tpu_torch.observer.cache import ObserverCache
 from outfit_tpu_torch.observations.dataset import ObsDataset
 from outfit_tpu_torch.time.scales import Ut1Provider
-from outfit_tpu_torch.utils.tensors import device_constant, resolve_device
+from outfit_tpu_torch.parallel.sharding import chunk_bounds, fit_devices, map_devices
+from outfit_tpu_torch.utils.tensors import device_constant
 
 # kernel status code -> result-error string
 _STATUS_NAMES = {
@@ -159,13 +163,12 @@ class LsqResult:
 DifferentialCorrectionOutput = LsqResult
 
 
-def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False, ephem=None):
-    """Differential correction from an explicit per-trajectory seed map.
-    ``slim``: the covariance crosses to the host as float32.  ``ephem``: for
-    an N-body ``config.propagator`` (moved to ``device`` here)."""
+def _screen_seeds(tids, initial_orbits):
+    """``(results, rows)`` of ``tids``: the error results of those without a
+    usable seed, and ``[(tid, seed)]`` of the rows to correct."""
     results: Dict[str, LsqResult] = {}
     rows = []
-    for tid in dataset.iter_traj_id():
+    for tid in tids:
         iod = initial_orbits.get(tid)
         if iod is None or not iod.ok or iod.equinoctial is None:
             err = iod.error if iod is not None else "no IOD seed"
@@ -175,24 +178,27 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False, 
             results[tid] = LsqResult(tid, ok=False, error="IOD seed not finite", iod=iod)
             continue
         rows.append((tid, iod))
+    return results, rows
 
-    if not rows:
-        return results
 
-    valid_all, glob_all = _padded_layout(dataset)
+def _correct(layout, row_of, rows, config, base, device, slim=False, ephem=None):
+    """Differential correction of ``rows`` (``[(tid, seed)]``) on ``device``,
+    every row at the dataset's padded width.  Returns the per-row host
+    arrays (status, elements, RMS, covariance lower triangle, active
+    observations, iterations) and the pre-warm's trip count.  ``slim``: the
+    covariance crosses to the host as float32.  ``ephem``: for an N-body
+    ``config.propagator`` (moved to ``device`` here)."""
+    valid_all, glob_all = layout
     T = len(rows)
-    tid_to_row = {tid: i for i, tid in enumerate(dataset.traj_ids)}
-    rsel = np.fromiter((tid_to_row[tid] for tid, _ in rows), np.int64, count=T)
+    rsel = np.fromiter((row_of[tid] for tid, _ in rows), np.int64, count=T)
     el0 = np.stack([np.asarray(iod.equinoctial, np.float64) for _, iod in rows])
     ep0 = np.fromiter((iod.epoch for _, iod in rows), np.float64, count=T)
-    g_valid = valid_all[rsel]
 
-    valid = torch.as_tensor(g_valid, device=device)
+    valid = torch.as_tensor(valid_all[rsel], device=device)
     glob = torch.as_tensor(glob_all[rsel], device=device)
-    base = base_arrays(dataset, cache, device)
     obs = ObsArrays(*_gather_obs_tables(base, glob, valid), valid, *_gather_bias(base, glob, valid))
     f64 = dict(dtype=torch.float64, device=device)
-    out = run_differential_correction(
+    out, prewarm = differential_correction(
         torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config,
         ephem=ephem.to(device) if config.propagator.nbody else None,
     )
@@ -201,21 +207,30 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False, 
     cov_tri = out.covariance[:, device_constant(_TRIL_I, device, torch.int64), device_constant(_TRIL_J, device, torch.int64)]
     if slim:
         cov_tri = cov_tri.float()
-
-    status, elements, rms, cov_tri, n_active_vec, its = (
+    arrays = [
         t.cpu().numpy()
-        for t in (
-            out.status, out.elements, out.normalised_rms, cov_tri,
-            n_active, out.total_newton_iterations,
-        )
+        for t in (out.status, out.elements, out.normalised_rms, cov_tri, n_active, out.total_newton_iterations)
+    ]
+    return arrays, prewarm
+
+
+def _add_results(results, rows, parts, valid_all, row_of):
+    """The ``LsqResult`` of each of ``rows`` added to ``results``, from the
+    :func:`_correct` outputs of its consecutive chunks ``parts``.  A row's
+    iteration count holds its chunk's pre-warm trip count; one batch's would
+    be the largest chunk's (its slowest row), and every row gets that."""
+    prewarm = max(p for _, p in parts)
+    status, elements, rms, cov_tri, n_active_vec = (
+        np.concatenate([a[k] for a, _ in parts]) for k in range(5)
     )
+    its = np.concatenate([a[5] + (prewarm - p) for a, p in parts])
     cov = _unpack_cov(cov_tri.astype(np.float64, copy=False))
     sigmas = uncertainties_from_covariance(torch.from_numpy(cov)).numpy()
 
     ok_l = ((status == STATUS_OK) & np.isfinite(elements).all(axis=1)).tolist()
-    nval_l = g_valid.sum(axis=1).tolist()
+    rsel = np.fromiter((row_of[tid] for tid, _ in rows), np.int64, count=len(rows))
+    nval_l = valid_all[rsel].sum(axis=1).tolist()
     rms_l = rms.tolist()
-    ep_l = ep0.tolist()
     nact_l = n_active_vec.tolist()
     its_l = its.tolist()
     status_l = status.tolist()
@@ -226,7 +241,7 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False, 
                 ok=True,
                 status=status_l[t],
                 normalised_rms=rms_l[t],
-                epoch=ep_l[t],
+                epoch=float(iod.epoch),
                 equinoctial=elements[t],
                 covariance=cov[t],
                 uncertainties=sigmas[t],
@@ -248,7 +263,6 @@ def _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, slim=False, 
                 n_active_obs=nval_l[t],
                 iod=iod,
             )
-    return results
 
 
 def _as_table(dataset, res, minimal=False):
@@ -281,18 +295,39 @@ def _fit_lsq(
 ):
     """:func:`fit_lsq` with an optional IOD noise source (``draws``, see
     :func:`outfit_tpu_torch.iod.api._fit_full_iod`) and the stream's
-    ``slim``/``minimal`` result contracts (see :func:`fit_lsq_stream`)."""
+    ``slim``/``minimal`` result contracts (see :func:`fit_lsq_stream`).
+
+    Over several devices, what sees the whole batch runs once (the dataset
+    preparation, the observer cache on the first device, the padded layout,
+    the IOD's triplet counts); then each device, in a worker thread of its
+    own, fits its chunk of the IOD's kept rows and then its chunk of the
+    seeded rows (:func:`chunk_bounds`), every row at the whole dataset's
+    widths, and the results join in dataset order."""
     _check_fetch_modes(as_table, minimal)
     check_supported(config)
-    device = resolve_device(device)
+    devices = fit_devices(device)
     prepare_dataset(dataset, iod_params.gap_max, error_model)
     if cache is None:
-        cache = ObserverCache.build(dataset, ephem, ut1, device=device)
-    if initial_orbits is not None:
-        res = _fit_lsq_seeded(dataset, config, initial_orbits, cache, device, ephem=ephem)
-    else:
-        iod = _fit_full_iod(dataset, ephem, iod_params, seed, ut1, None, cache, device, draws, slim)
-        res = _fit_lsq_seeded(dataset, config, iod, cache, device, slim, ephem)
+        cache = ObserverCache.build(dataset, ephem, ut1, device=devices[0])
+    layout = _padded_layout(dataset)
+    bases = device_bases(dataset, cache)
+    seeded = initial_orbits is not None
+    if not seeded:
+        initial_orbits = _IodBatch(dataset, iod_params.validated(), seed, layout, devices, draws, slim).fit(
+            devices, bases)
+    res, rows = _screen_seeds(dataset.traj_ids, initial_orbits)
+    if rows:
+        row_of = {tid: i for i, tid in enumerate(dataset.traj_ids)}
+
+        def work(device, chunk):
+            a, b = chunk
+            if a == b:
+                return None
+            return _correct(layout, row_of, rows[a:b], config, bases(device), device, slim, ephem)
+
+        parts = map_devices(devices, work, chunk_bounds([(0, len(rows))], len(devices)))
+        _add_results(res, rows, [p for p in parts if p is not None], layout[0], row_of)
+    if not seeded:
         res = {tid: res[tid] for tid in dataset.traj_ids}
     return _as_table(dataset, res, minimal) if as_table else res
 
@@ -319,14 +354,66 @@ def fit_lsq(
     correction either way.  ``as_table=True`` returns a columnar
     :class:`~outfit_tpu_torch.lsq.table.LsqTable` instead of the
     ``{traj_id: LsqResult}`` dict.  ``device``: where the observer cache,
-    IOD and correction run; default ``"cuda"`` when a card is present, else
-    ``"cpu"``.  The parameters are the JAX package's, in its order, with
-    ``device`` last in place of ``mesh``.
+    IOD and correction run: one device; a list of devices (names may
+    repeat), each fitting a contiguous chunk of the trajectories in a
+    worker thread of its own, the observer cache built once on the first,
+    every result bitwise the single-device one; ``"auto"``, every visible
+    CUDA card; None, ``"auto"`` when a card is present, else the CPU.  The
+    parameters are the JAX package's, in its order, with ``device`` last in
+    place of ``mesh`` (``mesh=`` is a ``TypeError``).
     """
     return _fit_lsq(
         dataset, ephem, iod_params, config, seed, ut1, error_model, initial_orbits, cache, device,
         as_table=as_table,
     )
+
+
+@dataclass
+class PendingLsq:
+    """A fit made by :func:`fit_lsq_dispatch`, handed back by
+    :func:`fit_lsq_finalize`.  The JAX package dispatches the device work
+    and fetches it at finalize; the port's fit reads the device once per
+    loop trip, so the dispatch runs it to its end and ``results`` holds
+    what the finalize returns (the dict, or the ``LsqTable`` when
+    dispatched with ``as_table=True``)."""
+
+    dataset: object
+    results: object
+
+
+def fit_lsq_dispatch(
+    dataset,
+    ephem,
+    iod_params: IODParams = IODParams(),
+    config: DifferentialCorrectionConfig = DifferentialCorrectionConfig(),
+    seed: int = 0,
+    ut1: Optional[Ut1Provider] = None,
+    error_model: Optional[ErrorModel] = None,
+    cache: Optional[ObserverCache] = None,
+    slim_fetch: bool = False,
+    as_table: bool = False,
+    minimal_fetch: bool = False,
+    device=None,
+) -> PendingLsq:
+    """IOD + differential correction of the dataset, for
+    :func:`fit_lsq_finalize`: ``fit_lsq_finalize(fit_lsq_dispatch(...))``
+    is ``fit_lsq(...)`` on the same arguments.  ``slim_fetch``,
+    ``as_table`` and ``minimal_fetch`` mean what they mean in
+    :func:`fit_lsq_stream` (``minimal_fetch=True`` requires
+    ``as_table=True``); ``device`` as in :func:`fit_lsq`.  The parameters
+    are the JAX package's, in its order, with ``device`` last in place of
+    ``mesh``."""
+    return PendingLsq(dataset, _fit_lsq(
+        dataset, ephem, iod_params, config, seed, ut1, error_model, None, cache, device,
+        as_table=as_table, slim=slim_fetch, minimal=minimal_fetch,
+    ))
+
+
+def fit_lsq_finalize(pending: PendingLsq):
+    """The results of a dispatched fit: the ``{traj_id: LsqResult}`` dict,
+    or the ``LsqTable`` when dispatched with ``as_table=True``; a second
+    call returns them again."""
+    return pending.results
 
 
 def _fit_lsq_stream(

@@ -32,7 +32,7 @@ from outfit_tpu_torch.constants import DPI, ROT_ECLMJ2000_TO_EQUMJ2000, VLIGHT_A
 from outfit_tpu_torch.elements.twobody import propagate_twobody
 from outfit_tpu_torch.elements.types import EquinoctialElements
 from outfit_tpu_torch.utils.linalg import cholesky_inverse6
-from outfit_tpu_torch.utils.tensors import device_constant
+from outfit_tpu_torch.utils.tensors import device_constant, lanewise
 
 SEL_ACTIVE = 0
 SEL_REJECTED = 1
@@ -135,8 +135,8 @@ def observation_partials(
     rho_xy2 = x * x + y * y
     rho_xy = torch.sqrt(rho_xy2)
     rho2 = rho_xy2 + z * z
-    ra = torch.remainder(torch.atan2(y, x), DPI)
-    dec = torch.atan2(z, rho_xy)
+    ra = torch.remainder(lanewise(torch.atan2, y, x), DPI)
+    dec = lanewise(torch.atan2, z, rho_xy)
 
     grad_ra = torch.stack([-y / rho_xy2, x / rho_xy2, torch.zeros_like(x)], dim=-1)
     grad_dec = torch.stack(

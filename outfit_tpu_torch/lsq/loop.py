@@ -94,9 +94,9 @@ def _prewarm_f32(elements0, epoch, obs: ObsArrays, cfg: DifferentialCorrectionCo
     (a step is taken only if the inversion succeeded and the result is not
     bizarre).  No statuses and no outlier decisions: the float64 loop owns
     every contract; this only moves the start close to the chi-squared
-    minimum.  Absolute MJDs stay float64.  Returns (elements float64,
-    iterations used), the count being the batch's trip count on every row,
-    as in the JAX package (so it depends on the batch)."""
+    minimum.  Absolute MJDs stay float64.  Returns (elements float64, the
+    batch's trip count), the count of the batch's slowest row, as in the
+    JAX package."""
     T = obs.mjd.shape[0]
     f32 = torch.float32
     obs32 = ObsArrays(
@@ -132,7 +132,7 @@ def _prewarm_f32(elements0, epoch, obs: ObsArrays, cfg: DifferentialCorrectionCo
         it += 1
     bad = ~torch.isfinite(el).all(dim=-1)
     el64 = torch.where(bad[:, None], elements0, el.to(torch.float64))
-    return el64, torch.full((T,), it, dtype=torch.int32, device=dev)
+    return el64, it
 
 
 def run_differential_correction(
@@ -150,6 +150,14 @@ def run_differential_correction(
     selection codes (default: all valid observations Active); ``ephem``
     (tables on the observations' device) for an N-body ``cfg.propagator``.
     """
+    return differential_correction(elements0, epoch, obs, cfg, selection0, ephem)[0]
+
+
+def differential_correction(elements0, epoch, obs: ObsArrays, cfg: DifferentialCorrectionConfig, selection0=None,
+                            ephem=None):
+    """:func:`run_differential_correction`, and the mixed-precision
+    pre-warm's trip count (0 without a pre-warm), which every row's
+    ``total_newton_iterations`` holds."""
     check_supported(cfg)
     T, N = obs.mjd.shape
     dev = obs.mjd.device
@@ -166,9 +174,9 @@ def run_differential_correction(
     # loop, with no pre-warm and no float32 Jacobians
     mixed = cfg.precision == "mixed" and not cfg.propagator.nbody
     jac_dtype = torch.float32 if mixed else None
-    total0 = torch.zeros(T, dtype=torch.int32, device=dev)
+    prewarm = 0
     if mixed:
-        elements0, total0 = _prewarm_f32(elements0, epoch, obs, cfg, selection0, free)
+        elements0, prewarm = _prewarm_f32(elements0, epoch, obs, cfg, selection0, free)
 
     st = _St(
         elements=elements0,
@@ -184,7 +192,7 @@ def run_differential_correction(
         last_ddec=torch.zeros((T, N, 6), **f64),
         inv_ok_last=torch.zeros(T, dtype=torch.bool, device=dev),
         outer_done=torch.zeros(T, dtype=torch.bool, device=dev),
-        total_newton=total0,
+        total_newton=torch.full((T,), prewarm, dtype=torch.int32, device=dev),
         kepler=torch.full((T, N, 3), float("nan"), **f64),
     )
 
@@ -356,4 +364,4 @@ def run_differential_correction(
     return DiffCorResult(
         st.elements, status, rms_out, cov, normal, st.selection, st.last_m,
         st.total_newton,
-    )
+    ), prewarm

@@ -42,6 +42,10 @@ class Observer:
     approx: bool = False
 
     @classmethod
+    def from_parallax(cls, longitude_rad, rho_cos_phi, rho_sin_phi, name=None, code=None):
+        return cls(float(longitude_rad), float(rho_cos_phi), float(rho_sin_phi), name, code)
+
+    @classmethod
     def geocenter(cls):
         return cls(0.0, 0.0, 0.0, "Geocenter", "500")
 

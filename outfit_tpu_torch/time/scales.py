@@ -8,9 +8,12 @@ Conversions run host-side during dataset preparation.
 from __future__ import annotations
 
 import datetime as _dt
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from outfit_tpu_torch.constants import JDTOMJD
 
 #: (mjd_utc_threshold, TAI-UTC seconds) — IERS leap second table, 1972-2017+.
 _LEAP_TABLE = np.array(
@@ -76,9 +79,30 @@ def tt_mjd_to_utc(mjd_tt):
     return mjd_tt - (tai_minus_utc(guess) + TT_MINUS_TAI) / 86400.0
 
 
+def mjd_to_jd(mjd):
+    """MJD -> JD (same time scale).  Parity: ``src/time.rs:213-217``."""
+    return np.asarray(mjd, dtype=np.float64) + JDTOMJD
+
+
+def jd_to_mjd(jd):
+    """JD -> MJD (same time scale).  Parity: ``src/time.rs:228-232``."""
+    return np.asarray(jd, dtype=np.float64) - JDTOMJD
+
+
+def utc_jd_to_tt_mjd(jd_utc):
+    """JD(UTC) -> MJD(TT).  Parity: ``src/time.rs:259-264``."""
+    return utc_mjd_to_tt(jd_to_mjd(jd_utc))
+
+
 def _datetime_to_mjd_utc(dt: _dt.datetime) -> float:
     delta = dt - _dt.datetime(1858, 11, 17, 0, 0, 0)
     return delta.days + (delta.seconds + delta.microseconds * 1e-6) / 86400.0
+
+
+def date_to_mjd(dates):
+    """ISO calendar strings ``YYYY-MM-DDTHH:mm:ss`` (UTC) -> MJD(UTC).
+    Parity: ``src/time.rs:198-202``."""
+    return np.array([_datetime_to_mjd_utc(_dt.datetime.fromisoformat(s)) for s in dates])
 
 
 def frac_date_to_mjd(date_str: str) -> float:
@@ -94,6 +118,52 @@ def frac_date_to_mjd(date_str: str) -> float:
     dt = _dt.datetime(year, month, day)
     mjd_utc = _datetime_to_mjd_utc(dt) + fraction
     return float(utc_mjd_to_tt(mjd_utc))
+
+
+def _mjd_to_datetime(mjd: float) -> tuple:
+    base = _dt.datetime(1858, 11, 17)
+    days = math.floor(mjd)
+    frac = mjd - days
+    dt = base + _dt.timedelta(days=days)
+    secs = frac * 86400.0
+    return dt, secs
+
+
+def _fmt_ss(seconds: float, prec: int) -> str:
+    """Two-digit zero-padded seconds with ``prec`` fractional digits.
+    Parity: ``src/time.rs:122-128``."""
+    pow10 = 10**prec
+    total = round(seconds * pow10)
+    whole, fracpart = divmod(total, pow10)
+    return f"{whole:02d}.{fracpart:0{prec}d}"
+
+
+def _iso_from_mjd(mjd: float, prec: int) -> str:
+    dt, secs = _mjd_to_datetime(mjd)
+    hours, rem = divmod(secs, 3600.0)
+    minutes, seconds = divmod(rem, 60.0)
+    # carry on rounding
+    if round(seconds * 10**prec) >= 60 * 10**prec:
+        seconds = 0.0
+        minutes += 1
+        if minutes >= 60:
+            minutes = 0
+            hours += 1
+            if hours >= 24:
+                hours = 0
+                dt = dt + _dt.timedelta(days=1)
+    ss = _fmt_ss(seconds, prec)
+    return f"{dt.year:04d}-{dt.month:02d}-{dt.day:02d}T{int(hours):02d}:{int(minutes):02d}:{ss}"
+
+
+def iso_tt_from_mjd(mjd_tt: float, prec: int = 3) -> str:
+    """Format MJD(TT) as ``YYYY-MM-DDThh:mm:SS.sss TT``."""
+    return _iso_from_mjd(float(mjd_tt), prec) + " TT"
+
+
+def iso_utc_from_mjd_tt(mjd_tt: float, prec: int = 3) -> str:
+    """Format MJD(TT) as UTC ISO-8601 with trailing Z."""
+    return _iso_from_mjd(float(tt_mjd_to_utc(mjd_tt)), prec) + "Z"
 
 
 @dataclass

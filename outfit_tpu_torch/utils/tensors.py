@@ -1,8 +1,10 @@
 """Tensor construction helpers shared by the port's modules."""
 
+import math
 import threading
 
 import torch
+import torch.nn.functional as F
 
 
 def as_f64(x, device=None) -> torch.Tensor:
@@ -74,3 +76,37 @@ def device_constant(array, device, dtype=torch.float64) -> torch.Tensor:
             if t is None:
                 t = _CONSTANTS[key] = torch.as_tensor(array, dtype=dtype, device=device)
     return t
+
+
+#: the CPU pieces of :func:`lanewise`: a multiple of every step of PyTorch's
+#: CPU SIMD loops (two vectors: at most 32 float32 lanes under AVX-512),
+#: and under its grain size (32,768 elements), so that a piece is one
+#: thread's whole range
+_LANE_STEP, _LANE_PIECE = 64, 16384
+
+
+def lanewise(fn, *args):
+    """``fn(*args)`` for an elementwise torch function ``fn`` (``atan2``,
+    ``atanh``, ``sinh``, ``cosh``, ``pow``, ``hypot``), each element's value
+    independent of where it lies in the tensors.  On the CPU PyTorch
+    evaluates these over SIMD vectors, and the end of a range (of the
+    tensor, and of each thread's share) in scalar code; the two round a few
+    percent of inputs an ulp apart, so a trajectory's result would depend
+    on its batch and on a device split.  There the broadcast arguments are
+    flattened, padded to whole vector steps and taken in single-thread
+    pieces, so every element is a vector lane.  On a CUDA device every
+    element runs the same code and ``fn`` runs as it is."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if tensors[0].device.type != "cpu":
+        return fn(*args)
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    n = math.prod(shape)
+    if n == 0:
+        return fn(*args)
+    pad = -n % _LANE_STEP
+    flat = [F.pad(a.broadcast_to(shape).reshape(-1), (0, pad)) if isinstance(a, torch.Tensor) else a for a in args]
+    out = torch.cat([
+        fn(*(f[i:i + _LANE_PIECE] if isinstance(f, torch.Tensor) else f for f in flat))
+        for i in range(0, n + pad, _LANE_PIECE)
+    ])
+    return out[:n].reshape(shape)

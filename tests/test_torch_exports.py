@@ -36,17 +36,13 @@ pytestmark = pytest.mark.filterwarnings("ignore:observatory .* SOLVED")
 
 #: public names of the JAX subpackages that the port does not have, and why
 NOT_PORTED = {
-    # ROADMAP queue 1 item 13 (the rest of the host surface)
-    "kepler": {"angle_diff"},
-    "lsq": {"PendingLsq", "fit_lsq_dispatch", "fit_lsq_finalize"},
-    "time": {"date_to_mjd", "iso_tt_from_mjd", "iso_utc_from_mjd_tt", "jd_to_mjd", "mjd_to_jd", "utc_jd_to_tt_mjd"},
     # XLA:CPU executable bookkeeping: deliberately not ported
     "utils": {"clear_executables_if_crowded", "memory_map_count"},
 }
-#: JAX subpackages without a port yet: ROADMAP queue 1 item 9 (multi-GPU)
-NOT_PORTED_PACKAGES = {"parallel"}
+#: JAX subpackages without a port
+NOT_PORTED_PACKAGES = set()
 SUBPACKAGES = ["elements", "ephem", "ephemeris", "frames", "iod", "kepler", "lsq", "observations", "observer",
-               "propagator", "time", "utils"]
+               "parallel", "propagator", "time", "utils"]
 
 
 def _public(mod):

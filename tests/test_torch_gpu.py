@@ -18,7 +18,9 @@ the card bitwise equal to sequential fits; the kernel's first build and
 launch counts, and the shared device constants, safe from two threads.
 The kernel against its plain version through every planet table of the
 N-body path (8 to 14 coefficients) at the table's scale (1e-15 AU and 1e-16
-AU/day times max(1, largest distance in AU)); ``propagate_nbody`` on the
+AU/day times max(1, largest distance in AU)); a fit split over the card
+named twice bitwise the single-device fit with one observer cache build;
+``propagate_nbody`` on the
 card against the CPU at 1e-10 AU with its exact launch count, and
 ``compute_apparent`` at 1e-12.  The kernel on tables parsed from NAIF and
 Horizon files at DE440's coefficient counts (6, 7, 11, 13) at the same
@@ -400,6 +402,44 @@ def test_stream_on_card_equals_sequential(eph, cuda):
             np.testing.assert_array_equal(a.equinoctial, b.equinoctial)
             if a.covariance is not None:
                 np.testing.assert_array_equal(a.covariance, b.covariance)
+
+
+def _same_row(a, b):
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "iod" and x is not None and y is not None:
+            _same_row(x, y)
+        elif isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+        else:
+            assert x == y or (x != x and y != y), (f.name, x, y)
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_split_on_the_card_named_twice_is_one_device(eph, cuda, precision):
+    """A two-way split over the card named twice is bitwise the single-device
+    fit on every field of every row (the pre-warm's trip count included),
+    and each fit builds one observer cache: 2 body + 1 frame launches."""
+    card = f"cuda:{torch.cuda.current_device()}"
+    mixed = precision == "mixed"
+    params = IODParams(**MIXED_IOD) if mixed else IODParams(n_noise_realizations=3, max_triplets=4)
+    cfg = DifferentialCorrectionConfig(**MIXED_CFG) if mixed else DifferentialCorrectionConfig()
+
+    def tiled():  # 48 trajectories, 16 copies of each fixture: 16 + 32 rows split two ways
+        parts = [ObsDataset.from_mpc_80_col(os.path.join(DATA, f"{n}.obs")) for n in FIXTURES[:3] for _ in range(16)]
+        return ObsDataset.concat(parts, rename=lambda k, t: f"{k}|{t}")
+
+    out = {}
+    for devices in (card, [card, card]):
+        chebyshev_cuda.reset_launch_counts()
+        out[str(devices)] = fit_lsq(tiled(), eph, params, cfg, 42, error_model=ErrorModel.fcct14(), device=devices)
+        assert chebyshev_cuda.launches == {"body": 2, "frame": 1}, devices
+    one, split = out.values()
+    assert list(split) == list(one)
+    for tid, r in one.items():
+        _same_row(r, split[tid])
 
 
 def test_first_kernel_use_and_constants_from_two_threads(eph, cuda, tmp_path, monkeypatch):

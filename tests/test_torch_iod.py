@@ -573,7 +573,10 @@ def test_fit_iod_dataset_form_matches_batch(teph, quick_fit):
 def test_entry_points_take_the_jax_parameters_in_order():
     """Every entry point takes the JAX package's parameters in its
     positional order; the one stated difference is ``device``, last (before
-    a ``**`` catch-all), in place of ``mesh``.  The ``ObsDataset``
+    a ``**`` catch-all), in place of ``mesh``, which stays refused: no entry
+    point takes a ``mesh`` parameter or a ``**`` catch-all that would
+    swallow it (``fit_lsq_stream_escalating``'s passes its keywords to
+    ``fit_lsq_stream``, which takes none of that name).  The ``ObsDataset``
     constructors take them with the same defaults, and no ``device``."""
     import outfit_tpu.iod.api as jiod
     import outfit_tpu.lsq.api as jlsq
@@ -588,14 +591,24 @@ def test_entry_points_take_the_jax_parameters_in_order():
     pairs = [(getattr(tiod, n), getattr(jiod, n)) for n in ("fit_full_iod", "fit_iod", "fit_full_iod_stream")]
     pairs += [
         (getattr(tlsq, n), getattr(jlsq, n))
-        for n in ("fit_lsq", "fit_lsq_stream", "fit_lsq_escalating", "fit_lsq_stream_escalating")
+        for n in ("fit_lsq", "fit_lsq_stream", "fit_lsq_escalating", "fit_lsq_stream_escalating", "fit_lsq_dispatch",
+                  "fit_lsq_finalize")
     ]
     for port, ref in pairs:
         params = inspect.signature(ref).parameters
         want = [n for n in params if n != "mesh"]
         var_kw = [n for n, p in params.items() if p.kind is inspect.Parameter.VAR_KEYWORD]
-        want.insert(want.index(var_kw[0]) if var_kw else len(want), "device")
+        if ref is not jlsq.fit_lsq_finalize:  # finalize takes the pending fit alone, in both
+            want.insert(want.index(var_kw[0]) if var_kw else len(want), "device")
         assert list(inspect.signature(port).parameters) == want, port.__name__
+        assert "mesh" not in inspect.signature(port).parameters
+    ds = ObsDataset.from_mpc_80_col(os.path.join(DATA, "8467.obs"))
+    for fn in (tiod.fit_full_iod, tlsq.fit_lsq, tlsq.fit_lsq_dispatch):
+        with pytest.raises(TypeError, match="mesh"):
+            fn(ds, None, mesh=None)
+    with pytest.raises(TypeError, match="mesh"):
+        next(tlsq.fit_lsq_stream_escalating([ds], None, [(IODParams(), DifferentialCorrectionConfig())],
+                                            mesh="auto"))
 
 
 def test_fit_lsq_seed_is_positional_after_config(teph):

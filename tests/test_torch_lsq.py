@@ -388,7 +388,9 @@ def test_port_imports_without_jax():
               "iod.triplets", "iod.noise", "kepler.stumpff", "kepler.universal", "elements.orb_elem",
               "propagator.dop853", "propagator.nbody", "ephemeris.compute", "ephemeris.api", "ephemeris.batch",
               "ephemeris.config", "ephemeris.request", "ephemeris.result", "ephem.naif", "ephem.horizon",
-              "ephem.resolver", "observations.ades", "observations.debias", "observations.native"):
+              "ephem.resolver", "observations.ades", "observations.debias", "observations.native",
+              "parallel.sharding", "conversion", "time.scales", "elements.types", "kepler.angles",
+              "observations.observatories"):
         assert "outfit_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
