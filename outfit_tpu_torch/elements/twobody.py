@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import DPI, GAUSS_GRAV_SQUARED
 from outfit_tpu_torch.elements.types import EquinoctialElements
 from outfit_tpu_torch.kepler.angles import principal_angle
@@ -104,7 +105,7 @@ def solve_generalized_kepler(
 
     done = torch.zeros(shape, dtype=torch.bool, device=lam.device)
     it = 0
-    while it < max_iter and not bool(done.all()):
+    while it < max_iter and trace.sites.twobody_kepler.live_lanes(~done):
         res = f - eq.k * s + eq.h * c - lam
         der = 1.0 - eq.k * c - eq.h * s
         raw = -res / torch.where(torch.abs(der) > eps, der, eps)

@@ -32,6 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import ROT_EQUMJ2000_TO_ECLMJ2000
 from outfit_tpu_torch.elements.orb_elem import KIND_KEPLERIAN, ccek1
 from outfit_tpu_torch.elements.types import (
@@ -449,7 +450,7 @@ class _IodBatch:
             max_obs=p.max_obs_for_triplets,
             max_triplets=p.max_triplets,
         )
-        return trips, ktrips, ktrips.cpu().numpy()
+        return trips, ktrips, trace.sites.iod_enumerate.cpu(ktrips).numpy()
 
     def _kept_trips(self, ka, kb, device):
         """(trips, ktrips) of kept rows [ka, kb) on ``device``."""
@@ -495,7 +496,7 @@ class _IodBatch:
             )
             if self.slim:
                 out = (out[0].float(), out[1], out[2].float()) + tuple(out[3:])
-            outs.append([o.cpu().numpy() for o in out])
+            outs.append([trace.sites.iod_copyback.cpu(o).numpy() for o in out])
         rms, kind, el, eqv, epoch, corrected = (np.concatenate(c) for c in zip(*outs))
         rms, el = rms.astype(np.float64, copy=False), el.astype(np.float64, copy=False)
 
@@ -515,9 +516,10 @@ class _IodBatch:
     def fit(self, devices, bases):
         """Every row's result, in dataset order: the kept rows fitted on
         ``devices`` (``bases(device)`` gives :func:`base_arrays` there)."""
-        for part in map_devices(devices, lambda d, i: self.part(d, i, lambda: bases(d)), range(len(devices))):
-            self.results.update(part)
-        return {tid: self.results[tid] for tid in self.dataset.traj_ids}
+        with trace.span("iod"):
+            for part in map_devices(devices, lambda d, i: self.part(d, i, lambda: bases(d)), range(len(devices))):
+                self.results.update(part)
+            return {tid: self.results[tid] for tid in self.dataset.traj_ids}
 
 
 def device_bases(dataset, cache):
@@ -528,7 +530,8 @@ def device_bases(dataset, cache):
     def bases(device):
         with lock:
             if device not in made:
-                made[device] = base_arrays(dataset, cache, device)
+                with trace.span("fit.prepare"):
+                    made[device] = base_arrays(dataset, cache, device)
             return made[device]
 
     return bases

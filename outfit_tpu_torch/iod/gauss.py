@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import GAUSS_GRAV, ROT_EQUMJ2000_TO_ECLMJ2000, VLIGHT_AU
 from outfit_tpu_torch.elements.orb_elem import ccek1, eccentricity_control
 from outfit_tpu_torch.iod.params import IODParams
@@ -168,79 +169,80 @@ def _fg_correction(
     starts, state and ``corrected`` decision frozen on the trips other
     lanes keep alive.  Returns (pos, vel, epoch, chi1, chi2, alive,
     committed)."""
-    feps = torch.finfo(pos.dtype).eps
-    # relative-step convergence floored at 10 eps of the working dtype
-    done_eps = max(params.newton_eps, 10.0 * feps)
-    # Newton-only solver, as the reference's velocity_correction
-    # (velocity.rs:131-138)
-    vc_cfg = SolverConfig(convergency=params.kepler_eps, auto_fallback=False)
+    with trace.span("iod.fg_correction"):
+        feps = torch.finfo(pos.dtype).eps
+        # relative-step convergence floored at 10 eps of the working dtype
+        done_eps = max(params.newton_eps, 10.0 * feps)
+        # Newton-only solver, as the reference's velocity_correction
+        # (velocity.rs:131-138)
+        vc_cfg = SolverConfig(convergency=params.kepler_eps, auto_fallback=False)
 
-    cpos, cvel, cepoch = pos, vel, epoch
-    alive = alive0
-    committed = torch.zeros_like(alive0)
-    done = torch.zeros_like(alive0)
-    K = chi1.shape[-1]
-    dts = torch.cat(
-        [torch.broadcast_to(dt01, chi1.shape), torch.broadcast_to(dt21, chi2.shape)], dim=-1
-    )
-    for _ in range(max_it):
-        if not bool((alive & ~done).any()):
-            break
-        x1 = cpos[..., 0, :]
-        x2 = cpos[..., 1, :]
-        x3 = cpos[..., 2, :]
-        # one stacked solve for both sides along the candidate axis (L, 2K)
-        both = velocity_correction(
-            torch.cat([x1, x3], dim=-2),
-            torch.cat([x2, x2], dim=-2),
-            torch.cat([cvel, cvel], dim=-2),
-            dts,
-            params.max_perihelion_au,
-            params.max_ecc,
-            chi_guess=torch.cat([chi1, chi2], dim=-1),
-            cfg=vc_cfg,
+        cpos, cvel, cepoch = pos, vel, epoch
+        alive = alive0
+        committed = torch.zeros_like(alive0)
+        done = torch.zeros_like(alive0)
+        K = chi1.shape[-1]
+        dts = torch.cat(
+            [torch.broadcast_to(dt01, chi1.shape), torch.broadcast_to(dt21, chi2.shape)], dim=-1
         )
-        left = type(both)(*(f[..., :K, :] if f.dim() > chi1.dim() else f[..., :K] for f in both))
-        right = type(both)(*(f[..., K:, :] if f.dim() > chi1.dim() else f[..., K:] for f in both))
-        iter_ok = (left.status == 0) & (right.status == 0)
-        chi_upd = iter_ok & alive & ~done
-        chi1n = torch.where(chi_upd, left.psi, chi1)
-        chi2n = torch.where(chi_upd, right.psi, chi2)
+        for _ in range(max_it):
+            if not trace.sites.iod_fg.live_lanes(alive & ~done):
+                break
+            x1 = cpos[..., 0, :]
+            x2 = cpos[..., 1, :]
+            x3 = cpos[..., 2, :]
+            # one stacked solve for both sides along the candidate axis (L, 2K)
+            both = velocity_correction(
+                torch.cat([x1, x3], dim=-2),
+                torch.cat([x2, x2], dim=-2),
+                torch.cat([cvel, cvel], dim=-2),
+                dts,
+                params.max_perihelion_au,
+                params.max_ecc,
+                chi_guess=torch.cat([chi1, chi2], dim=-1),
+                cfg=vc_cfg,
+            )
+            left = type(both)(*(f[..., :K, :] if f.dim() > chi1.dim() else f[..., :K] for f in both))
+            right = type(both)(*(f[..., K:, :] if f.dim() > chi1.dim() else f[..., K:] for f in both))
+            iter_ok = (left.status == 0) & (right.status == 0)
+            chi_upd = iter_ok & alive & ~done
+            chi1n = torch.where(chi_upd, left.psi, chi1)
+            chi2n = torch.where(chi_upd, right.psi, chi2)
 
-        new_vel = 0.5 * (left.v2_corrected + right.v2_corrected)
-        fl = left.f * right.g - right.f * left.g
-        fl_ok = torch.isfinite(fl) & (torch.abs(fl) > feps)
-        inv_f = 1.0 / torch.where(fl_ok, fl, 1.0)
-        cv = torch.stack([right.g * inv_f, -torch.ones_like(inv_f), -left.g * inv_f], dim=-1)
-        new_pos, new_epoch, rho_ok = _positions_from_cvec(tri_b, s_inv_b, u_b, cv, params.min_rho2_au)
-        acc_i, _, _, _ = eccentricity_control(
-            new_pos[..., 1, :], new_vel, params.max_perihelion_au, params.max_ecc
-        )
-        # hard reject (not re-judged once done): the candidate loses correction
-        hard_reject = iter_ok & fl_ok & rho_ok & ~acc_i & ~done
-        commit = iter_ok & fl_ok & rho_ok & acc_i & alive & ~done
+            new_vel = 0.5 * (left.v2_corrected + right.v2_corrected)
+            fl = left.f * right.g - right.f * left.g
+            fl_ok = torch.isfinite(fl) & (torch.abs(fl) > feps)
+            inv_f = 1.0 / torch.where(fl_ok, fl, 1.0)
+            cv = torch.stack([right.g * inv_f, -torch.ones_like(inv_f), -left.g * inv_f], dim=-1)
+            new_pos, new_epoch, rho_ok = _positions_from_cvec(tri_b, s_inv_b, u_b, cv, params.min_rho2_au)
+            acc_i, _, _, _ = eccentricity_control(
+                new_pos[..., 1, :], new_vel, params.max_perihelion_au, params.max_ecc
+            )
+            # hard reject (not re-judged once done): the candidate loses correction
+            hard_reject = iter_ok & fl_ok & rho_ok & ~acc_i & ~done
+            commit = iter_ok & fl_ok & rho_ok & acc_i & alive & ~done
 
-        denom = torch.sqrt(torch.sum(new_pos**2, dim=(-1, -2)))
-        rel_err = torch.sqrt(torch.sum((new_pos - cpos) ** 2, dim=(-1, -2))) / torch.where(
-            denom > feps, denom, 1.0
-        )
+            denom = torch.sqrt(torch.sum(new_pos**2, dim=(-1, -2)))
+            rel_err = torch.sqrt(torch.sum((new_pos - cpos) ** 2, dim=(-1, -2))) / torch.where(
+                denom > feps, denom, 1.0
+            )
 
-        cpos = torch.where(commit[..., None, None], new_pos, cpos)
-        cvel = torch.where(commit[..., None], new_vel, cvel)
-        cepoch = torch.where(commit, new_epoch, cepoch)
-        alive = alive & ~hard_reject
-        committed = committed | commit
-        # a lane that neither commits nor moves its warm starts is stationary
-        stalled = (
-            alive
-            & ~done
-            & ~commit
-            & (torch.abs(chi1n - chi1) <= feps * (1.0 + torch.abs(chi1)))
-            & (torch.abs(chi2n - chi2) <= feps * (1.0 + torch.abs(chi2)))
-        )
-        done = done | (commit & (rel_err <= done_eps)) | stalled
-        chi1, chi2 = chi1n, chi2n
-    return cpos, cvel, cepoch, chi1, chi2, alive, committed
+            cpos = torch.where(commit[..., None, None], new_pos, cpos)
+            cvel = torch.where(commit[..., None], new_vel, cvel)
+            cepoch = torch.where(commit, new_epoch, cepoch)
+            alive = alive & ~hard_reject
+            committed = committed | commit
+            # a lane that neither commits nor moves its warm starts is stationary
+            stalled = (
+                alive
+                & ~done
+                & ~commit
+                & (torch.abs(chi1n - chi1) <= feps * (1.0 + torch.abs(chi1)))
+                & (torch.abs(chi2n - chi2) <= feps * (1.0 + torch.abs(chi2)))
+            )
+            done = done | (commit & (rel_err <= done_eps)) | stalled
+            chi1, chi2 = chi1n, chi2n
+        return cpos, cvel, cepoch, chi1, chi2, alive, committed
 
 
 def gauss_candidates(tri: GaussTriplets, params: IODParams, work_dtype=None) -> GaussCandidates:

@@ -13,6 +13,7 @@ per trip.  Roots are returned sorted by real part unless ``sort=False``.
 import numpy as np
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.utils.tensors import as_floats, device_constant, lanewise
 
 #: initial circle: 8 angles with a Bini-style offset of 0.4
@@ -100,7 +101,7 @@ def aberth_deg8(c0, c3, c6, max_iter: int = 50, eps: float = 1e-6, active=None, 
     if active is not None:
         done = done | ~active[..., None]
     for _ in range(max_iter):
-        if bool(done.all()):
+        if not trace.sites.iod_aberth.live_lanes(~done):
             break
         pr, pi = p(zr, zi)
         dpr, dpi = dp(zr, zi)

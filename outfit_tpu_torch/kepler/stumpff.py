@@ -21,6 +21,7 @@ of the JAX loop whatever the batch holds.
 import numpy as np
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.utils.tensors import as_floats, device_constant
 
 #: Reduce |beta| below this before the series (power of 4 friendly).
@@ -55,7 +56,7 @@ def s_funct(psi, alpha, k=None, kmax=None):
     if k is None:
         k = halving_count(psi, alpha)
     if kmax is None:
-        kmax = int(k.max()) if k.numel() else 0
+        kmax = trace.sites.stumpff_kmax.item(k.max()) if k.numel() else 0
 
     scale = device_constant(_POW2NEG, psi.device, psi.dtype)[k]  # exact powers of two
     psi_r = psi * scale

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import GAUSS_GRAV_SQUARED
 from outfit_tpu_torch.kepler.angles import principal_angle
 from outfit_tpu_torch.kepler.stumpff import halving_count, s_funct
@@ -247,7 +248,7 @@ def _newton(psi0, p: KeplerParams, cfg: SolverConfig):
     """Masked safeguarded Newton with batch-converged exit.
 
     Parity: ``run_newton`` (newton_solver.rs:240-277).  Each trip reads the
-    device once: whether every lane is done, together with the halving
+    device once: how many lanes are not done, together with the halving
     bound of the trip's Stumpff evaluation."""
     eps = _feps(p.dt)
     conv = _conv(cfg, p.dt)
@@ -260,8 +261,8 @@ def _newton(psi0, p: KeplerParams, cfg: SolverConfig):
     for _ in range(cfg.max_newton):
         psi_s = torch.where(torch.isfinite(psi), psi, 0.5)
         k = halving_count(psi_s, torch.broadcast_to(p.alpha, psi_s.shape))
-        all_done, kmax = torch.stack([done.all().to(torch.int64), k.max()]).tolist()
-        if all_done:
+        live, kmax = trace.sites.kepler_newton.tolist(torch.stack([(~done).sum(), k.max()]), done.numel())
+        if not live:
             break
         res, der, _ = _residual_and_derivative(psi_s, p, k, kmax)
 
@@ -329,7 +330,7 @@ def solve_kepuni(
     psi, converged = _newton(psi0, p, cfg)
 
     # the bracketing pass runs only when some lane failed (lax.cond)
-    if cfg.auto_fallback and not bool(converged.all()):
+    if cfg.auto_fallback and not trace.sites.kepler_fallback.item(converged.all()):
         psi_fb, fb_ok = _bisection_fallback(psi0, p, cfg, ~converged)
         psi, converged = torch.where(converged, psi, psi_fb), converged | fb_ok
 

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.elements.types import (
     EquinoctialElements,
     equinoctial_to_keplerian,
@@ -188,30 +189,32 @@ def _correct(layout, row_of, rows, config, base, device, slim=False, ephem=None)
     observations, iterations) and the pre-warm's trip count.  ``slim``: the
     covariance crosses to the host as float32.  ``ephem``: for an N-body
     ``config.propagator`` (moved to ``device`` here)."""
-    valid_all, glob_all = layout
-    T = len(rows)
-    rsel = np.fromiter((row_of[tid] for tid, _ in rows), np.int64, count=T)
-    el0 = np.stack([np.asarray(iod.equinoctial, np.float64) for _, iod in rows])
-    ep0 = np.fromiter((iod.epoch for _, iod in rows), np.float64, count=T)
+    with trace.span("correct"):
+        valid_all, glob_all = layout
+        T = len(rows)
+        rsel = np.fromiter((row_of[tid] for tid, _ in rows), np.int64, count=T)
+        el0 = np.stack([np.asarray(iod.equinoctial, np.float64) for _, iod in rows])
+        ep0 = np.fromiter((iod.epoch for _, iod in rows), np.float64, count=T)
 
-    valid = torch.as_tensor(valid_all[rsel], device=device)
-    glob = torch.as_tensor(glob_all[rsel], device=device)
-    obs = ObsArrays(*_gather_obs_tables(base, glob, valid), valid, *_gather_bias(base, glob, valid))
-    f64 = dict(dtype=torch.float64, device=device)
-    out, prewarm = differential_correction(
-        torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config,
-        ephem=ephem.to(device) if config.propagator.nbody else None,
-    )
-    n_active = ((out.selection == SEL_ACTIVE) & valid).sum(dim=-1)
-    # the JAX package returns the covariance mirrored from its lower triangle
-    cov_tri = out.covariance[:, device_constant(_TRIL_I, device, torch.int64), device_constant(_TRIL_J, device, torch.int64)]
-    if slim:
-        cov_tri = cov_tri.float()
-    arrays = [
-        t.cpu().numpy()
-        for t in (out.status, out.elements, out.normalised_rms, cov_tri, n_active, out.total_newton_iterations)
-    ]
-    return arrays, prewarm
+        valid = torch.as_tensor(valid_all[rsel], device=device)
+        glob = torch.as_tensor(glob_all[rsel], device=device)
+        obs = ObsArrays(*_gather_obs_tables(base, glob, valid), valid, *_gather_bias(base, glob, valid))
+        f64 = dict(dtype=torch.float64, device=device)
+        out, prewarm = differential_correction(
+            torch.as_tensor(el0, **f64), torch.as_tensor(ep0, **f64), obs, config,
+            ephem=ephem.to(device) if config.propagator.nbody else None,
+        )
+        n_active = ((out.selection == SEL_ACTIVE) & valid).sum(dim=-1)
+        # the JAX package returns the covariance mirrored from its lower triangle
+        cov_tri = out.covariance[:, device_constant(_TRIL_I, device, torch.int64),
+                                 device_constant(_TRIL_J, device, torch.int64)]
+        if slim:
+            cov_tri = cov_tri.float()
+        arrays = [
+            trace.sites.lsq_copyback.cpu(t).numpy()
+            for t in (out.status, out.elements, out.normalised_rms, cov_tri, n_active, out.total_newton_iterations)
+        ]
+        return arrays, prewarm
 
 
 def _add_results(results, rows, parts, valid_all, row_of):
@@ -303,33 +306,39 @@ def _fit_lsq(
     own, fits its chunk of the IOD's kept rows and then its chunk of the
     seeded rows (:func:`chunk_bounds`), every row at the whole dataset's
     widths, and the results join in dataset order."""
-    _check_fetch_modes(as_table, minimal)
-    check_supported(config)
-    devices = fit_devices(device)
-    prepare_dataset(dataset, iod_params.gap_max, error_model)
-    if cache is None:
-        cache = ObserverCache.build(dataset, ephem, ut1, device=devices[0])
-    layout = _padded_layout(dataset)
-    bases = device_bases(dataset, cache)
-    seeded = initial_orbits is not None
-    if not seeded:
-        initial_orbits = _IodBatch(dataset, iod_params.validated(), seed, layout, devices, draws, slim).fit(
-            devices, bases)
-    res, rows = _screen_seeds(dataset.traj_ids, initial_orbits)
-    if rows:
-        row_of = {tid: i for i, tid in enumerate(dataset.traj_ids)}
+    with trace.span("fit"):
+        with trace.span("fit.prepare"):
+            _check_fetch_modes(as_table, minimal)
+            check_supported(config)
+            devices = fit_devices(device)
+            prepare_dataset(dataset, iod_params.gap_max, error_model)
+            layout = _padded_layout(dataset)
+        if cache is None:
+            cache = ObserverCache.build(dataset, ephem, ut1, device=devices[0])
+        bases = device_bases(dataset, cache)
+        seeded = initial_orbits is not None
+        if not seeded:
+            initial_orbits = _IodBatch(dataset, iod_params.validated(), seed, layout, devices, draws, slim).fit(
+                devices, bases)
+        with trace.span("fit.prepare"):
+            res, rows = _screen_seeds(dataset.traj_ids, initial_orbits)
+            row_of = {tid: i for i, tid in enumerate(dataset.traj_ids)}
+        parts = []
+        if rows:
 
-        def work(device, chunk):
-            a, b = chunk
-            if a == b:
-                return None
-            return _correct(layout, row_of, rows[a:b], config, bases(device), device, slim, ephem)
+            def work(device, chunk):
+                a, b = chunk
+                if a == b:
+                    return None
+                return _correct(layout, row_of, rows[a:b], config, bases(device), device, slim, ephem)
 
-        parts = map_devices(devices, work, chunk_bounds([(0, len(rows))], len(devices)))
-        _add_results(res, rows, [p for p in parts if p is not None], layout[0], row_of)
-    if not seeded:
-        res = {tid: res[tid] for tid in dataset.traj_ids}
-    return _as_table(dataset, res, minimal) if as_table else res
+            parts = map_devices(devices, work, chunk_bounds([(0, len(rows))], len(devices)))
+        with trace.span("fit.assemble"):
+            if rows:
+                _add_results(res, rows, [p for p in parts if p is not None], layout[0], row_of)
+            if not seeded:
+                res = {tid: res[tid] for tid in dataset.traj_ids}
+            return _as_table(dataset, res, minimal) if as_table else res
 
 
 def fit_lsq(

@@ -11,15 +11,18 @@ integrator) ``"mixed"`` runs the plain float64 loop.
 
 Every trajectory carries its own loop-state lanes; terminal failures are
 status codes, frozen in place while other trajectories continue.  The JAX
-``while_loop``s and ``cond`` are Python ``while``/``if`` on ``.any()``
-(one host sync per trip); every done-lane gate is kept as written there, so
-a lane's result does not depend on the rest of the batch.
+``while_loop``s and ``cond`` are Python ``while``/``if`` on the count of
+live lanes (one host sync per trip, read through a
+:mod:`outfit_tpu_torch.trace` site); every done-lane gate is kept as
+written there, so a lane's result does not depend on the rest of the
+batch.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.elements.types import EquinoctialElements, is_bizarre
 from outfit_tpu_torch.lsq.config import DifferentialCorrectionConfig
 from outfit_tpu_torch.lsq.iteration import (
@@ -114,7 +117,7 @@ def _prewarm_f32(elements0, epoch, obs: ObsArrays, cfg: DifferentialCorrectionCo
     done = torch.zeros(T, dtype=torch.bool, device=dev)
     kep = torch.full(obs.mjd.shape + (3,), float("nan"), dtype=f32, device=dev)
     it = 0
-    while it < cfg.prewarm_max_iterations and bool((~done).any()):
+    while it < cfg.prewarm_max_iterations and trace.sites.lsq_prewarm.live_lanes(~done):
         res = single_iteration(
             el, epoch, selection0, obs32, free, kepler_warm=(kep[..., 0], kep[..., 1], kep[..., 2]),
         )
@@ -203,7 +206,7 @@ def differential_correction(elements0, epoch, obs: ObsArrays, cfg: DifferentialC
         inner_done = ~running0
         converged = torch.zeros(T, dtype=torch.bool, device=dev)
         it = 0
-        while it < cfg.max_newton_iterations and bool((~inner_done).any()):
+        while it < cfg.max_newton_iterations and trace.sites.lsq_newton.live_lanes(~inner_done):
             act = ~inner_done
             res = single_iteration(
                 st.elements, epoch, st.selection, obs, free, cfg.propagator, ephem, jac_dtype,
@@ -307,7 +310,7 @@ def differential_correction(elements0, epoch, obs: ObsArrays, cfg: DifferentialC
         done_now = running & ~st.outer_done & (clean | ~inner_converged)
         # the chi^2 projection is only needed for lanes still in play
         need = running & ~st.outer_done & ~done_now
-        if not bool(need.any()):
+        if not trace.sites.lsq_outlier.live_lanes(need):
             return st._replace(outer_done=st.outer_done | done_now)
         new_sel, changes = outlier_step(st)
         stable = need & (changes == 0)
@@ -318,8 +321,8 @@ def differential_correction(elements0, epoch, obs: ObsArrays, cfg: DifferentialC
 
     # exits as soon as every trajectory is settled
     p = 0
-    while p < cfg.max_outlier_rejection_passes + 1 and bool(
-        ((st.status == STATUS_RUNNING) & ~st.outer_done).any()
+    while p < cfg.max_outlier_rejection_passes + 1 and trace.sites.lsq_passes.live_lanes(
+        (st.status == STATUS_RUNNING) & ~st.outer_done
     ):
         st = outer_body(p, st)
         p += 1

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.ephem import chebyshev_cuda
 from outfit_tpu_torch.ephem.chebyshev import granule_index
 from outfit_tpu_torch.frames import RefEpoch, RefSystem, equequ, rotmt, rotpn
@@ -158,33 +159,34 @@ class ObserverCache(NamedTuple):
         ``cache_velocity=False`` zeroes the geocentric observer velocity, so
         the heliocentric velocity is the Earth's.  UT1 table interpolation
         stays host-side."""
-        device = resolve_device(device)
-        if ut1 is None:
-            ut1 = Ut1Provider()
-        if len(dataset.mjd_tt) == 0:
-            z = torch.zeros((0, 3), dtype=torch.float64, device=device)
-            return cls(0, np.zeros(0), z, z, z, z)
-        ephem = ephem.to(device)
-        fixed_pos = np.stack([np.asarray(earth_fixed_position(o)) for o in dataset.observers])
-        fixed_vel = np.stack([np.asarray(earth_fixed_velocity(o)) for o in dataset.observers])
+        with trace.span("observer_cache"):
+            device = resolve_device(device)
+            if ut1 is None:
+                ut1 = Ut1Provider()
+            if len(dataset.mjd_tt) == 0:
+                z = torch.zeros((0, 3), dtype=torch.float64, device=device)
+                return cls(0, np.zeros(0), z, z, z, z)
+            ephem = ephem.to(device)
+            fixed_pos = np.stack([np.asarray(earth_fixed_position(o)) for o in dataset.observers])
+            fixed_vel = np.stack([np.asarray(earth_fixed_velocity(o)) for o in dataset.observers])
 
-        n = len(dataset.mjd_tt)
-        nb = 8
-        while nb < n:
-            nb *= 2
-        pad = nb - n
-        mjd_np = np.concatenate([dataset.mjd_tt, np.full(pad, dataset.mjd_tt[0])])
-        tut = ut1.tt_mjd_to_ut1(mjd_np)
-        oi = np.concatenate([np.asarray(dataset.observer_index, np.int64), np.zeros(pad, np.int64)])
-        n_gran, gran, t0 = frame_granules(dataset.mjd_tt)
+            n = len(dataset.mjd_tt)
+            nb = 8
+            while nb < n:
+                nb *= 2
+            pad = nb - n
+            mjd_np = np.concatenate([dataset.mjd_tt, np.full(pad, dataset.mjd_tt[0])])
+            tut = ut1.tt_mjd_to_ut1(mjd_np)
+            oi = np.concatenate([np.asarray(dataset.observer_index, np.int64), np.zeros(pad, np.int64)])
+            n_gran, gran, t0 = frame_granules(dataset.mjd_tt)
 
-        f64 = dict(dtype=torch.float64, device=device)
-        oi_t = torch.as_tensor(oi, device=device)
-        geo_pos, geo_vel, hp, hv = _cache_compute(
-            torch.as_tensor(mjd_np, **f64),
-            torch.as_tensor(tut, **f64),
-            torch.as_tensor(fixed_pos, **f64)[oi_t],
-            torch.as_tensor(fixed_vel, **f64)[oi_t],
-            t0, gran, ephem, cache_velocity, n_gran,
-        )
-        return cls(n, np.asarray(dataset.mjd_tt), geo_pos, geo_vel, hp, hv)
+            f64 = dict(dtype=torch.float64, device=device)
+            oi_t = torch.as_tensor(oi, device=device)
+            geo_pos, geo_vel, hp, hv = _cache_compute(
+                torch.as_tensor(mjd_np, **f64),
+                torch.as_tensor(tut, **f64),
+                torch.as_tensor(fixed_pos, **f64)[oi_t],
+                torch.as_tensor(fixed_vel, **f64)[oi_t],
+                t0, gran, ephem, cache_velocity, n_gran,
+            )
+            return cls(n, np.asarray(dataset.mjd_tt), geo_pos, geo_vel, hp, hv)

@@ -14,6 +14,7 @@ and :func:`map_devices` (one worker thread per device).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
@@ -148,13 +149,15 @@ def _on_device(fn, device, arg):
 def map_devices(devices, fn, args) -> list:
     """``[fn(device, arg) for device, arg in zip(devices, args)]``: inline
     for one device; else one worker thread per device, with that device
-    current.  Every worker runs to its end; the first error raised in one
-    (in device order) is raised here.  Threads, not processes: the chunks
-    share the dataset, the observer cache and the ephemeris without a copy,
-    and PyTorch releases the interpreter lock inside its operators and
-    while it waits for a device."""
+    current, in a copy of the caller's context (so the
+    :mod:`outfit_tpu_torch.trace` span open here is the parent of the
+    worker's spans).  Every worker runs to its end; the first error raised
+    in one (in device order) is raised here.  Threads, not processes: the
+    chunks share the dataset, the observer cache and the ephemeris without
+    a copy, and PyTorch releases the interpreter lock inside its operators
+    and while it waits for a device."""
     if len(devices) == 1:
         return [fn(devices[0], args[0])]
     with ThreadPoolExecutor(max_workers=len(devices)) as pool:
-        futures = [pool.submit(_on_device, fn, d, a) for d, a in zip(devices, args)]
+        futures = [pool.submit(contextvars.copy_context().run, _on_device, fn, d, a) for d, a in zip(devices, args)]
         return [f.result() for f in futures]

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import ROT_EQUMJ2000_TO_ECLMJ2000
 from outfit_tpu_torch.elements.twobody import propagate_twobody
 from outfit_tpu_torch.elements.types import EquinoctialElements
@@ -135,70 +136,71 @@ def propagate_nbody(
     ``"cuda"`` when a card is present (the card of a CUDA tensor among the
     elements and ``t1``), else ``"cpu"``.
     """
-    dev = input_device(device, *eq, t1_mjd_tt)
-    ephem = ephem.to(dev)
-    t0r = as_f64(eq.reference_epoch, dev).to(dev)
-    t1r = as_f64(t1_mjd_tt, dev).to(dev)
-    batch = torch.broadcast_shapes(t0r.shape, t1r.shape)
-    t0 = torch.broadcast_to(t0r, batch)
-    t1 = torch.broadcast_to(t1r, batch)
-    eq = EquinoctialElements(*[torch.broadcast_to(as_f64(f, dev).to(dev), batch) for f in eq])
+    with trace.span("propagate"):
+        dev = input_device(device, *eq, t1_mjd_tt)
+        ephem = ephem.to(dev)
+        t0r = as_f64(eq.reference_epoch, dev).to(dev)
+        t1r = as_f64(t1_mjd_tt, dev).to(dev)
+        batch = torch.broadcast_shapes(t0r.shape, t1r.shape)
+        t0 = torch.broadcast_to(t0r, batch)
+        t1 = torch.broadcast_to(t1r, batch)
+        eq = EquinoctialElements(*[torch.broadcast_to(as_f64(f, dev).to(dev), batch) for f in eq])
 
-    # initial state + analytic element Jacobians at t0
-    init = propagate_twobody(eq, 0.0, 0.0, compute_derivatives=True)
-    j0 = torch.cat([init.dpos_delem, init.dvel_delem], dim=-1)  # (...,6,6)
-    # rows = elements, cols = (pos, vel); STM right-multiplies J0^T
+        # initial state + analytic element Jacobians at t0
+        init = propagate_twobody(eq, 0.0, 0.0, compute_derivatives=True)
+        j0 = torch.cat([init.dpos_delem, init.dvel_delem], dim=-1)  # (...,6,6)
+        # rows = elements, cols = (pos, vel); STM right-multiplies J0^T
 
-    gm = _perturber_gms(config, dev)
-    if config.frozen_perturbers:
-        # snapshot semantics: positions at t0, accurate for arcs of up to
-        # ~30 days
-        pert_pos = _perturber_positions(ephem, config, t0)
-        acc_ind = _indirect_acceleration(pert_pos, gm)
-
-    phi0 = torch.broadcast_to(device_constant(_EYE6_FLAT, dev), batch + (36,))
-    y0 = torch.cat([init.position, init.velocity, phi0], dim=-1)
-
-    def rhs(t, y):
-        r = y[..., 0:3]
-        v = y[..., 3:6]
-        phi = y[..., 6:42].reshape(y.shape[:-1] + (6, 6))
+        gm = _perturber_gms(config, dev)
         if config.frozen_perturbers:
-            acc, grad = _acceleration_and_gradient(r, pert_pos, gm, acc_ind)
-        else:
-            # time-varying perturbers: table lookup at each integration time
-            acc, grad = _acceleration_and_gradient(r, _perturber_positions(ephem, config, t), gm)
-        # A = [[0, I], [grad, 0]] exploited structurally: rows 0-2 of dPhi
-        # are Phi rows 3-5, rows 3-5 are grad @ Phi[0:3]
-        dphi_bot = torch.sum(grad[..., :, :, None] * phi[..., None, 0:3, :], dim=-2)
-        # y[..., 24:42] is Phi rows 3-5, flattened
-        return torch.cat(
-            [v, acc, y[..., 24:42], dphi_bot.reshape(y.shape[:-1] + (18,))], dim=-1
+            # snapshot semantics: positions at t0, accurate for arcs of up to
+            # ~30 days
+            pert_pos = _perturber_positions(ephem, config, t0)
+            acc_ind = _indirect_acceleration(pert_pos, gm)
+
+        phi0 = torch.broadcast_to(device_constant(_EYE6_FLAT, dev), batch + (36,))
+        y0 = torch.cat([init.position, init.velocity, phi0], dim=-1)
+
+        def rhs(t, y):
+            r = y[..., 0:3]
+            v = y[..., 3:6]
+            phi = y[..., 6:42].reshape(y.shape[:-1] + (6, 6))
+            if config.frozen_perturbers:
+                acc, grad = _acceleration_and_gradient(r, pert_pos, gm, acc_ind)
+            else:
+                # time-varying perturbers: table lookup at each integration time
+                acc, grad = _acceleration_and_gradient(r, _perturber_positions(ephem, config, t), gm)
+            # A = [[0, I], [grad, 0]] exploited structurally: rows 0-2 of dPhi
+            # are Phi rows 3-5, rows 3-5 are grad @ Phi[0:3]
+            dphi_bot = torch.sum(grad[..., :, :, None] * phi[..., None, 0:3, :], dim=-2)
+            # y[..., 24:42] is Phi rows 3-5, flattened
+            return torch.cat(
+                [v, acc, y[..., 24:42], dphi_bot.reshape(y.shape[:-1] + (18,))], dim=-1
+            )
+
+        res = dop853_integrate(
+            rhs, y0, t0, t1, rtol=config.rel_tol, atol=config.abs_tol,
+            max_steps=config.max_steps, device=dev,
         )
 
-    res = dop853_integrate(
-        rhs, y0, t0, t1, rtol=config.rel_tol, atol=config.abs_tol,
-        max_steps=config.max_steps, device=dev,
-    )
+        pos1 = res.y[..., 0:3]
+        vel1 = res.y[..., 3:6]
+        phi1 = res.y[..., 6:42].reshape(batch + (6, 6))
 
-    pos1 = res.y[..., 0:3]
-    vel1 = res.y[..., 3:6]
-    phi1 = res.y[..., 6:42].reshape(batch + (6, 6))
+        # J(t1) = Phi(t1) @ J0_state, with J0_state (6state x 6elem) = j0^T
+        j_state = torch.sum(
+            phi1[..., None, :, :] * j0[..., :, None, :], dim=-1
+        )  # (..., 6elem, 6state)
+        dpos = j_state[..., 0:3]
+        dvel = j_state[..., 3:6]
 
-    # J(t1) = Phi(t1) @ J0_state, with J0_state (6state x 6elem) = j0^T
-    j_state = torch.sum(
-        phi1[..., None, :, :] * j0[..., :, None, :], dim=-1
-    )  # (..., 6elem, 6state)
-    dpos = j_state[..., 0:3]
-    dvel = j_state[..., 3:6]
+        # dt ~ 0 short-circuit
+        tiny = torch.abs(t1 - t0) < 1e-14
+        pos1 = torch.where(tiny[..., None], init.position, pos1)
+        vel1 = torch.where(tiny[..., None], init.velocity, vel1)
+        dpos = torch.where(tiny[..., None, None], init.dpos_delem, dpos)
+        dvel = torch.where(tiny[..., None, None], init.dvel_delem, dvel)
+        status = torch.where(tiny, 0, res.status).to(torch.int32)
+        n_steps = torch.where(tiny, 0, res.n_steps).to(torch.int32)
 
-    # dt ~ 0 short-circuit
-    tiny = torch.abs(t1 - t0) < 1e-14
-    pos1 = torch.where(tiny[..., None], init.position, pos1)
-    vel1 = torch.where(tiny[..., None], init.velocity, vel1)
-    dpos = torch.where(tiny[..., None, None], init.dpos_delem, dpos)
-    dvel = torch.where(tiny[..., None, None], init.dvel_delem, dvel)
-    status = torch.where(tiny, 0, res.status).to(torch.int32)
-    n_steps = torch.where(tiny, 0, res.n_steps).to(torch.int32)
-
-    return NBodyResult(pos1, vel1, dpos, dvel, status, n_steps)
+        return NBodyResult(pos1, vel1, dpos, dvel, status, n_steps)

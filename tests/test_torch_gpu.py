@@ -26,6 +26,8 @@ card against the CPU at 1e-10 AU with its exact launch count, and
 Horizon files at DE440's coefficient counts (6, 7, 11, 13) at the same
 scaled bar, and a fit from such a file with three body launches and one
 frame launch per cache build, card against CPU at rtol 1e-6 / atol 1e-9.
+A span of ``outfit_tpu_torch.trace`` holds the interval of a kernel it
+waited for in a torch.profiler trace, on the same clock.
 """
 
 import os
@@ -662,3 +664,28 @@ def test_fit_lsq_from_a_de_file_on_card_matches_cpu(cuda, tmp_path, fmt):
     assert a.ok and not a.fell_back_to_iod
     assert (a.status, a.n_active_obs, a.fell_back_to_iod) == (b.status, b.n_active_obs, b.fell_back_to_iod)
     np.testing.assert_allclose(b.equinoctial, a.equinoctial, rtol=1e-6, atol=1e-9)
+
+
+def test_a_span_holds_its_kernel_on_the_profilers_clock(cuda):
+    """A span around a sleep kernel and its synchronize holds the kernel's
+    interval in a torch.profiler trace, 100 µs of slack either side: the
+    records' ``time.time_ns()`` clock is the one of Kineto's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from outfit_tpu_torch import trace
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as records:
+            with trace.span("fit"):
+                torch.cuda._sleep(20_000_000)  # cycles: about 10 ms
+                torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type().name == "CUDA" and e.duration_ns() > 1_000_000]
+    (rec,) = records
+    assert len(kernels) == 1, [e.name() for e in kernels]
+    k = kernels[0]
+    slack = 100_000
+    assert rec.start_ns - slack <= k.start_ns() and k.start_ns() + k.duration_ns() <= rec.end_ns + slack, (
+        rec, k.start_ns(), k.duration_ns())
