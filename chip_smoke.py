@@ -29,6 +29,18 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    the larger; the bytes of the epochs, the outputs and the table rows the
    call reads) and their ratio, and at phase 4's shape one call of the
    wrapper and of the plain version (CUDA events around the call);
+3c. the IOD's f-g correction kernel (``outfit_tpu_torch/csrc/
+   fg_correction.cuh``) against its plain loop on the card at the stream's
+   shapes: the calls of one mixed IOD of phase 8's profile (the float32
+   candidate pass over 65,536 lanes x 3 candidates, the float64 polish of
+   8,192 winners) and one float64 IOD on phase 6's dataset, each through
+   the kernel and the plain loop: the site ``iod_fg``'s trips, live and
+   lanes identical, and every output bitwise (equal, or NaN where the
+   plain loop's is NaN); ptxas's registers and spills, the
+   kernel's device time (as phase 3's), its bound (bytes over 3.35 TB/s or
+   the live trips' operations, counted with one Newton step a side, over
+   67 TFLOP/s float32 or 34 TFLOP/s float64, the larger) and their ratio,
+   and the plain loop's wall;
 4. the seeded least-squares path at real size: the real-cadence workload
    (the fixtures 2015AB, 8467 and 33803 tiled round-robin to 4096
    trajectories, re-noised with ``default_rng(0)`` at the catalog sigma),
@@ -173,13 +185,17 @@ also count the host syncs
 of a warm fit, profile a warm fit split into its IOD and correction
 stages, and hold card against CPU on the first 64 trajectories.
 
-The line before the last is ``{"kernels": [...]}``: per site the launches
+The line before the last is ``{"kernels": [...]}``: per K1 site the launches
 summed over phases 4 and 6 to 15, the largest deviation of phases 3 and 14
 (AU at the body site: an ulp or two of the outer planets' 30 AU), and at
 phase 4's shape the device time (``device_ms``), the bound (``bound_ms``,
 ``bound_by``), one call of the wrapper (``ms``) and of the plain version
 (``plain_ms``), and ``library_ms`` null (no single PyTorch call computes
-the function); the last line is ``{"ok": true, "device": {...}}``.
+the function); then per working type of the f-g correction kernel its
+launches summed over phases 4 to 15 (each phase's held to two per mixed
+IOD chunk on the card, one of each type, and one per float64 chunk) and
+phase 3c's times at the float32 candidate pass and the float64 IOD's
+candidate pass; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -1209,6 +1225,116 @@ def phase_kernel_check_planets(dev, eph, synth):
     return worst
 
 
+#: an H100 SXM's float32 rate outside the tensor cores, at its 700 W limit
+#: (NVIDIA's data sheet)
+FP32_FLOP_PER_S = 67e12
+FG_KERNEL_SRC = "outfit_tpu_torch/csrc/fg_correction.cuh"
+FG_REPLACES = "outfit_tpu/iod/gauss.py:_fg_correction (XLA while_loop, no Pallas kernel)"
+
+
+def fg_trip_flops():
+    """Floating-point operations of one live outer trip of the f-g
+    correction kernel, counted from ``csrc/fg_correction.cuh`` with one
+    Newton step a side and no Stumpff duplication (the least a trip
+    takes): the central state (87), two Kepler solves (set-up 3, a Newton
+    step 111, the closing Stumpff evaluation 91, f, g and the velocity 16)
+    and the rest of the trip (175).  A lower bound of the work, so the
+    share below is one of the kernel's time too."""
+    return 87 + 2 * (3 + 111 + 91 + 16) + 175
+
+
+def fg_bound_ms(n_cand, per, work_bytes, live_trips):
+    """(least milliseconds, "bytes" or "operations") of one f-g kernel
+    call: each input byte read once and each output byte written once
+    (per candidate 14 working-type numbers, an epoch and a flag in; the
+    same, a second flag and an int32 count out; per triplet 27 numbers and
+    5 float64), against ``live_trips`` x :func:`fg_trip_flops` at the
+    working type's rate."""
+    n_tri = n_cand // per
+    nbytes = n_cand * (2 * (14 * work_bytes + 8 + 1) + 1 + 4) + n_tri * (27 * work_bytes + 5 * 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = live_trips * fg_trip_flops() / (FP32_FLOP_PER_S if work_bytes == 4 else FP64_FLOP_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fg_kernel(dev, eph, synth):
+    """Phase 3c: the IOD's f-g correction kernel against its plain version
+    on the card, at the stream's shapes: the calls of ``_fg_correction`` in one
+    mixed IOD of the stream's profile (the float32 candidate pass and the
+    float64 polish) and one float64 IOD over the 8192 x 12 dataset, each
+    through the kernel and through ``_fg_correction_plain`` on the same
+    inputs.  Flags and the site ``iod_fg``'s trips, live and lanes must be
+    identical and every output bitwise (equal, or NaN where the plain
+    loop's is NaN); prints the kernel's device time (20
+    launches behind a sleep kernel), its bound (:func:`fg_bound_ms`) and
+    their ratio, and the plain version's wall (CUDA events, median of 3).
+    Returns the ``kernels`` line's numbers per working type."""
+    import torch
+
+    from outfit_tpu_torch import IODParams, fit_full_iod, trace
+    from outfit_tpu_torch.iod import fg_correction_cuda, gauss
+
+    t = time.perf_counter()
+    _, report = fg_correction_cuda.build()
+    _log(f"f-g kernel build: {time.perf_counter() - t:.2f} s")
+    for line in report.splitlines():
+        if "fg_correction_kernel" in line and "Compiling entry" in line:
+            _log("  " + line.strip())
+        elif "spill" in line or ("registers" in line and "Used" in line):
+            _log("  " + line.strip())
+
+    calls = []
+    fg = gauss._fg_correction
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return fg(*a, **k)
+
+    gauss._fg_correction = record
+    try:
+        for prec in ("mixed", "f64"):
+            fit_full_iod(synth, eph, IODParams(n_noise_realizations=3, precision=prec, newton_max_it=20,
+                                               max_triplets=2), 7, device=dev)
+    finally:
+        gauss._fg_correction = fg
+    out = {}
+    for a, k in calls:
+        work = a[5].dtype
+        name = str(work).removeprefix("torch.")
+        shape = tuple(a[8].shape)
+        site = trace.sites.iod_fg
+
+        def counted(fn):
+            before = (site.trips, site.live, site.lanes)
+            res = fn()
+            return res, tuple(x - y for x, y in zip((site.trips, site.live, site.lanes), before))
+
+        got, c_kernel = counted(lambda: gauss._fg_correction(*a, **k))
+        ref, c_plain = counted(lambda: gauss._fg_correction_plain(*a, **k))
+        if c_kernel != c_plain:
+            raise AssertionError(f"f-g kernel {name} {shape}: trips, live, lanes {c_kernel} != plain {c_plain}")
+        for label, x, y in zip(("pos", "vel", "epoch", "chi1", "chi2", "alive", "committed"), got, ref):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                raise AssertionError(f"f-g kernel {name} {shape}: {label} {x.dtype} {tuple(x.shape)} against the "
+                                     f"plain version's {y.dtype} {tuple(y.shape)}")
+            same = ((x == y) | (torch.isnan(x) & torch.isnan(y))) if x.is_floating_point() else x == y
+            if not bool(same.all()):
+                raise AssertionError(f"f-g kernel {name} {shape}: {label} differs from the plain version in "
+                                     f"{int((~same).sum())} of {same.numel()} numbers")
+        # the kernel alone: the wrapper's flat inputs, no summary read
+        args, kw = gauss._fg_kernel_inputs(*a, **k)
+        ms = device_ms(lambda: fg_correction_cuda.correct(*args, **kw))
+        n = args[6].shape[0]
+        bound, by = fg_bound_ms(n, n // args[0].shape[0], a[5].element_size(), c_kernel[1])
+        plain_ms = _median_ms(lambda: gauss._fg_correction_plain(*a, **k), runs=3)
+        _log(f"f-g kernel {name} candidates {shape} ({n}, {n // args[0].shape[0]} a triplet): trips {c_kernel[0]}, "
+             f"live share {c_kernel[1] / max(c_kernel[2], 1)!r}; device {1e3 * ms!r} us, bound {1e3 * bound!r} us "
+             f"({by}), share {bound / ms!r}; plain version {plain_ms!r} ms (median of 3); every output bitwise")
+        if name not in out or n > out[name]["n"]:
+            out[name] = dict(n=n, device_ms=ms, bound_ms=bound, bound_by=by, plain_ms=plain_ms)
+    return out
+
+
 class counted:
     """Counts the calls of ``module.name`` inside the ``with`` block, and
     the host seconds spent in them."""
@@ -2229,6 +2355,64 @@ def phase_split(dev, eph, ref):
     return launches
 
 
+def fg_phase(tag, total, fn, *args):
+    """``fn(*args)`` with the f-g correction kernel's launch counts reset
+    and the IOD's chunks on a card counted (``iod/api.py:_iod_kernel`` runs
+    once a chunk): the launches must be two a mixed chunk (the float32
+    candidate pass and the float64 polish) and one a float64 chunk.  Adds
+    them to ``total`` and returns what ``fn`` returns."""
+    import threading
+
+    from outfit_tpu_torch.iod import api, fg_correction_cuda
+
+    want = {"float32": 0, "float64": 0}
+    lock = threading.Lock()
+    kernel = api._iod_kernel
+
+    def chunk(tri, obs_arrays, lane_traj, window_mask, params):
+        if tri.time.is_cuda and tri.time.shape[0]:
+            with lock:
+                want["float32"] += params.precision == "mixed"
+                want["float64"] += 1
+        return kernel(tri, obs_arrays, lane_traj, window_mask, params)
+
+    fg_correction_cuda.reset_launch_counts()
+    api._iod_kernel = chunk
+    try:
+        out = fn(*args)
+    finally:
+        api._iod_kernel = kernel
+    got = dict(fg_correction_cuda.launches)
+    if got != want:
+        raise AssertionError(f"{tag}: f-g kernel launches {got}, want {want} (2 a mixed chunk, 1 a float64 chunk)")
+    _log(f"{tag}: f-g kernel launches {got}")
+    for work in total:
+        total[work] += got[work]
+    return out
+
+
+def fg_kernels(times, launches):
+    """The ``kernels`` line's entries of the f-g correction kernel, one per
+    working type: ``launches`` summed over the main path's phases
+    (:func:`fg_phase`) and phase 3c's times."""
+    return [
+        {
+            "name": f"fg_correction_{work}",
+            "route": "cuda",
+            "source": FG_KERNEL_SRC,
+            "replaces": FG_REPLACES,
+            "launches": launches[work],
+            "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            # no PyTorch call runs a per-candidate iteration to its own exit
+            "library_ms": None,
+        }
+        for work, t in sorted(times.items())
+    ]
+
+
 def main():
     sys.path.insert(0, HERE)
     dev = phase_device()
@@ -2242,10 +2426,13 @@ def main():
     synth = synthetic_dataset(N_SYNTH, N_SYNTH_OBS, eph)
     times = phase_kernel_check(dev, eph, {"real cadence": ds, "synthetic": synth})
     planets_err = phase_kernel_check_planets(dev, eph, synth)
+    fg = phase_fg_kernel(dev, eph, synth)
     times["body"]["err"] = max(times["body"]["err"], planets_err)
-    launches, cold4, warm4, res4 = phase_slice(dev, eph, ds, picks)
+    # the f-g kernel's launches of the main path, phases 4 to 15
+    fg_launches = {"float32": 0, "float64": 0}
+    launches, cold4, warm4, res4 = fg_phase("seeded 4096", fg_launches, phase_slice, dev, eph, ds, picks)
     ref = dict(ds4=ds, seeds4=seeds_for(ds, picks), res4=res4, synth=synth)
-    phase_cross_check(dev, eph, ds, picks)
+    fg_phase("card against CPU 64", fg_launches, phase_cross_check, dev, eph, ds, picks)
 
     from outfit_tpu_torch import DifferentialCorrectionConfig, IODParams
 
@@ -2266,7 +2453,7 @@ def main():
 
     def timed_phase(tag, phase, *args):
         t = time.perf_counter()
-        out = phase(*args)
+        out = fg_phase(tag, fg_launches, phase, *args)
         _log(f"{tag} phase: {time.perf_counter() - t!r} s")
         return out
 
@@ -2319,7 +2506,7 @@ def main():
         }
         for name, site in (("chebyshev_body", "body"), ("chebyshev_frame", "frame"))
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + fg_kernels(fg, fg_launches)}))
     print(json.dumps({
         "ok": True,
         "device": {

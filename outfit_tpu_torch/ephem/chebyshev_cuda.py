@@ -6,7 +6,8 @@ Replaces the Pallas TPU kernel ``outfit_tpu/ephem/pallas_kernel.py``
 (kernel); the note at the top of the ``.cuh`` says what bounds it and how
 its design answers that.  ``nvcc`` compiles it for ``sm_90a`` into a shared
 library with a plain C interface at first use, into ``_build/<hash of the
-sources>/`` beside this package's sources; ``ctypes`` loads it.
+sources>/`` beside this package's sources (``utils/cuda_build.py``); ``ctypes``
+loads it.
 
 The two call sites of the fitting path each have their own channel count:
 
@@ -23,25 +24,14 @@ from several).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG, "csrc")
+from outfit_tpu_torch.utils import cuda_build
+
 _SOURCES = ("chebyshev.cu", "chebyshev.cuh")
-_BUILD_ROOT = os.path.join(_PKG, "_build")
-#: ``-fmad=false``: no multiply-add contraction, so the recurrence rounds
-#: as the plain version's elementwise products do and only the order of the
-#: final sum differs from it
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_BUILD_ROOT = cuda_build.BUILD_ROOT
 
 #: the launcher holds one instantiation of the kernel for each coefficient
 #: count per channel from 2 to this, and refuses the rest
@@ -64,50 +54,14 @@ def reset_launch_counts() -> None:
             launches[k] = 0
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256()
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as fh:
-            h.update(name.encode() + b"\0" + fh.read())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.environ.get("NVCC"),
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set $NVCC or $CUDA_HOME, or put nvcc on PATH")
-
-
 def build() -> tuple:
-    """Compile the library if this source hash has not been built yet.
+    """Compile the library if this source hash has not been built yet
+    (:func:`outfit_tpu_torch.utils.cuda_build.build`).
 
     Returns ``(path, compiler_output)``; the output holds ``ptxas``'s
     register and spill report when a build ran, else is empty."""
     with _lock:
-        return _build()
-
-
-def _build() -> tuple:
-    out_dir = os.path.join(_BUILD_ROOT, _source_hash())
-    lib_path = os.path.join(out_dir, "libchebyshev.so")
-    if os.path.exists(lib_path):
-        return lib_path, ""
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, "chebyshev.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+        return cuda_build.build(_SOURCES, "libchebyshev.so", _BUILD_ROOT)
 
 
 def _load():

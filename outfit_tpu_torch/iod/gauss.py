@@ -26,6 +26,7 @@ import torch
 from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import GAUSS_GRAV, ROT_EQUMJ2000_TO_ECLMJ2000, VLIGHT_AU
 from outfit_tpu_torch.elements.orb_elem import ccek1, eccentricity_control
+from outfit_tpu_torch.iod import fg_correction_cuda
 from outfit_tpu_torch.iod.params import IODParams
 from outfit_tpu_torch.iod.roots import aberth_deg8, descartes_upper_bound
 from outfit_tpu_torch.kepler.universal import SolverConfig, velocity_correction
@@ -163,6 +164,65 @@ def _fg_correction(
     candidate axis of :func:`gauss_candidates` and the float64 polish of the
     selected candidate.  ``epoch`` stays float64; positions and velocities
     run in ``pos.dtype``.
+
+    Two call shapes: candidates ``chi1.shape`` (L, K) with the triplet
+    tensors' batch (L, 1), broadcast over K; or (T,) with triplets (T,).
+    On a CUDA device the refinement runs as one kernel, one thread per
+    candidate to its own exit (``iod/fg_correction_cuda.py``), and its
+    summary comes back in one read; on the CPU as :func:`_fg_correction_plain`,
+    the same values.  Returns (pos, vel, epoch, chi1, chi2, alive,
+    committed)."""
+    if pos.device.type != "cuda":
+        return _fg_correction_plain(tri_b, s_inv_b, u_b, dt01, dt21, pos, vel, epoch, chi1, chi2, alive0,
+                                    params, max_it)
+    with trace.span("iod.fg_correction"):
+        shape = chi1.shape
+        args, kw = _fg_kernel_inputs(tri_b, s_inv_b, u_b, dt01, dt21, pos, vel, epoch, chi1, chi2, alive0,
+                                     params, max_it)
+        cpos, cvel, cepoch, chi1, chi2, alive, committed, _, summary = fg_correction_cuda.correct(*args, **kw)
+        if cpos.shape[0]:
+            trace.sites.iod_fg.lane_trips(summary, cpos.shape[0])
+        return (cpos.reshape(*shape, 3, 3), cvel.reshape(*shape, 3), cepoch.reshape(shape), chi1.reshape(shape),
+                chi2.reshape(shape), alive.reshape(shape), committed.reshape(shape))
+
+
+def _fg_kernel_inputs(tri_b, s_inv_b, u_b, dt01, dt21, pos, vel, epoch, chi1, chi2, alive0, params: IODParams,
+                      max_it: int):
+    """:func:`_fg_correction`'s arguments as the kernel takes them
+    (:func:`outfit_tpu_torch.iod.fg_correction_cuda.correct`): the triplet
+    tensors flat over their batch, the candidates flat and contiguous, and
+    the plain loop's tolerances.  Returns ``(args, kwargs)``."""
+    shape = chi1.shape
+    batch = tri_b.time.shape[:-1]
+    if batch != shape and not (len(batch) == len(shape) >= 1 and batch[:-1] == shape[:-1] and batch[-1] == 1):
+        raise ValueError(f"candidates {tuple(shape)} do not follow the triplets' batch {tuple(batch)}")
+
+    def flat(x, tail=()):
+        return x.reshape((-1, *tail)).contiguous()
+
+    def cand(x, tail=()):
+        return flat(torch.broadcast_to(x, (*shape, *tail)), tail)
+
+    feps = torch.finfo(pos.dtype).eps
+    args = (
+        flat(tri_b.obs_pos, (3, 3)), flat(s_inv_b, (3, 3)), flat(u_b, (3, 3)), flat(tri_b.time, (3,)),
+        flat(torch.broadcast_to(dt01, batch)), flat(torch.broadcast_to(dt21, batch)),
+        cand(pos, (3, 3)), cand(vel, (3,)), cand(epoch), cand(chi1), cand(chi2), cand(alive0),
+    )
+    kw = dict(
+        max_it=max_it, max_newton=SolverConfig().max_newton, conv=max(params.kepler_eps, 100.0 * feps),
+        done_eps=max(params.newton_eps, 10.0 * feps), peri_max=params.max_perihelion_au, ecc_max=params.max_ecc,
+        min_rho2=params.min_rho2_au,
+    )
+    return args, kw
+
+
+def _fg_correction_plain(
+    tri_b, s_inv_b, u_b, dt01, dt21, pos, vel, epoch, chi1, chi2, alive0,
+    params: IODParams, max_it: int,
+):
+    """:func:`_fg_correction` as a loop of batched tensor operations: the
+    CPU's path, and the plain version the kernel is held against.
 
     The loop runs while some candidate is alive and unconverged (one
     device read per trip).  A lane that is done or dead keeps its warm

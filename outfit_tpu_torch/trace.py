@@ -11,7 +11,9 @@ the nanoseconds the thread was blocked in it.  At a loop's exit test the
 same read also brings back the count of lanes still live: a read that
 finds some live starts a trip, and the site adds the trip, the live lanes
 and the lanes in all (live / lanes: the share of the work a trip does
-that was still needed).
+that was still needed).  A loop that runs inside one kernel, each lane to
+its own exit, brings back at its end, in one read, what its exit tests
+would have counted (:meth:`Site.lane_trips`).
 
 **Spans** (always on).  ``with span("correct"):`` marks a stretch of a call
 with a name from :data:`SPAN_NAMES`, the span that caused it (the one open
@@ -69,7 +71,7 @@ SITE_NAMES = (
     "lsq_outlier",  # lsq/loop.py: does any lane need the outlier step
     "lsq_passes",  # lsq/loop.py: outlier-rejection passes
     "iod_aberth",  # iod/roots.py: Aberth root iterations
-    "iod_fg",  # iod/gauss.py: f-g correction loop
+    "iod_fg",  # iod/gauss.py: f-g correction loop (on a card, the kernel's summary)
     "kepler_newton",  # kepler/universal.py: universal Kepler Newton loop
     "twobody_kepler",  # elements/twobody.py: generalized Kepler loop
     "dop853",  # propagator/dop853.py: integration loop
@@ -87,16 +89,16 @@ _open: contextvars.ContextVar[Optional["span"]] = contextvars.ContextVar("outfit
 _records: Optional[list] = None
 
 
-def _blocked(ns, live=0, lanes=0, site=None):
-    """Add one read of ``ns`` nanoseconds to ``site`` and to every open span."""
+def _blocked(ns, site=None, trips=0, live=0, lanes=0):
+    """Add one read of ``ns`` nanoseconds to ``site`` and to every open span,
+    and ``trips``, ``live`` and ``lanes`` to ``site``."""
     with _lock:
         if site is not None:
             site.reads += 1
             site.blocked_ns += ns
-            if live:
-                site.trips += 1
-                site.live += live
-                site.lanes += lanes
+            site.trips += trips
+            site.live += live
+            site.lanes += lanes
         s = _open.get()
         while s is not None:
             s.reads += 1
@@ -122,7 +124,7 @@ class Site:
         n = mask.sum()
         t = time.perf_counter_ns()
         n = int(n)
-        _blocked(time.perf_counter_ns() - t, n, mask.numel(), self)
+        _blocked(time.perf_counter_ns() - t, self, int(n > 0), n, mask.numel() if n else 0)
         return n
 
     def tolist(self, x, lanes=0) -> list:
@@ -130,21 +132,35 @@ class Site:
         count out of ``lanes``."""
         t = time.perf_counter_ns()
         out = x.tolist()
-        _blocked(time.perf_counter_ns() - t, out[0] if lanes else 0, lanes, self)
+        live = out[0] if lanes else 0
+        _blocked(time.perf_counter_ns() - t, self, int(live > 0), live, lanes if live else 0)
+        return out
+
+    def lane_trips(self, x, lanes) -> list:
+        """The end of a loop that ran on the device, each of ``lanes`` lanes
+        to its own exit: ``x`` holds [the most trips a lane was live at,
+        the sum of those trips], read in one read.  Adds what the exit
+        tests of the same loop run batched would have added: the most
+        trips, the lanes live at them (the sum) and the lanes in all (the
+        most trips times ``lanes``)."""
+        t = time.perf_counter_ns()
+        out = x.tolist()
+        trips, live = out
+        _blocked(time.perf_counter_ns() - t, self, trips, live, trips * lanes)
         return out
 
     def item(self, x):
         """``x.item()``."""
         t = time.perf_counter_ns()
         out = x.item()
-        _blocked(time.perf_counter_ns() - t, site=self)
+        _blocked(time.perf_counter_ns() - t, self)
         return out
 
     def cpu(self, x):
         """``x.cpu()``: one copy back to the host."""
         t = time.perf_counter_ns()
         out = x.cpu()
-        _blocked(time.perf_counter_ns() - t, site=self)
+        _blocked(time.perf_counter_ns() - t, self)
         return out
 
 

@@ -28,6 +28,13 @@ scaled bar, and a fit from such a file with three body launches and one
 frame launch per cache build, card against CPU at rtol 1e-6 / atol 1e-9.
 A span of ``outfit_tpu_torch.trace`` holds the interval of a kernel it
 waited for in a torch.profiler trace, on the same clock.
+The IOD's f-g correction kernel against its plain loop on short arcs of
+the stream's profile (``tests/short_arcs.py``): flags identical,
+positions, velocities, epochs and warm starts bitwise, the same trips, live
+and lanes at the site ``iod_fg``, in the float32 (L, K), float64 (L, K) and
+float64 polish (T,) call shapes; a candidate bitwise the same in a
+sub-batch; two launches a mixed IOD chunk and one a float64 chunk; the
+wrapper's refusals.
 """
 
 import os
@@ -689,3 +696,132 @@ def test_a_span_holds_its_kernel_on_the_profilers_clock(cuda):
     slack = 100_000
     assert rec.start_ns - slack <= k.start_ns() and k.start_ns() + k.duration_ns() <= rec.end_ns + slack, (
         rec, k.start_ns(), k.duration_ns())
+
+
+def _fg_calls(eph, dev, precision, n_traj=512):
+    """The calls of ``_fg_correction`` in one IOD of the short-arc stream's
+    profile (12 geocentric observations over 40 days, three noise draws, two
+    triplets) over ``n_traj`` arcs on ``dev``: (args, kwargs) each."""
+    from short_arcs import short_arcs
+    from outfit_tpu_torch.iod import gauss
+
+    ds = short_arcs(n_traj, 12, eph, seed=11)
+    calls, fg = [], gauss._fg_correction
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return fg(*a, **k)
+
+    gauss._fg_correction = record
+    try:
+        fit_full_iod(ds, eph, IODParams(n_noise_realizations=3, precision=precision, newton_max_it=20, max_triplets=2),
+                     7, device=dev)
+    finally:
+        gauss._fg_correction = fg
+    return calls
+
+
+def _same_bits(x, y):
+    """Equal, NaN where NaN."""
+    return x.shape == y.shape and bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+def _iod_fg_counts(fn):
+    from outfit_tpu_torch import trace
+
+    site = trace.sites.iod_fg
+    before = (site.trips, site.live, site.lanes)
+    out = fn()
+    return out, tuple(b - a for a, b in zip(before, (site.trips, site.live, site.lanes)))
+
+
+@pytest.mark.parametrize("precision", ["mixed", "f64"])
+def test_fg_kernel_matches_plain_on_the_card(eph, cuda, precision):
+    """The f-g correction kernel against ``_fg_correction_plain`` on the
+    card, on the same inputs: the float32 candidate pass (L, K) and the
+    float64 polish (T,) of a mixed IOD, the float64 candidate pass of a
+    float64 IOD.  Flags identical; positions, velocities, epochs and warm
+    starts bitwise (the kernel mirrors PyTorch's rounding and summation
+    order on the card); the trips, live and lanes of the site ``iod_fg``
+    equal."""
+    from outfit_tpu_torch.iod import gauss
+
+    calls = _fg_calls(eph, cuda, precision)
+    assert [(a[5].dtype, a[8].dim()) for a, _ in calls] == (
+        [(torch.float32, 2), (torch.float64, 1)] if precision == "mixed" else [(torch.float64, 2)])
+    for a, k in calls:
+        got, n_got = _iod_fg_counts(lambda: gauss._fg_correction(*a, **k))
+        ref, n_ref = _iod_fg_counts(lambda: gauss._fg_correction_plain(*a, **k))
+        assert n_got == n_ref and n_got[0] > 0
+        for name, x, y in zip(("pos", "vel", "epoch", "chi1", "chi2", "alive", "committed"), got, ref):
+            assert x.dtype == y.dtype and _same_bits(x, y), (name, a[5].dtype, tuple(a[8].shape))
+        assert got[6].any() and not got[6].all()
+
+
+def test_fg_kernel_candidate_independent_of_its_batch(eph, cuda):
+    """A candidate's result is bitwise the same when its triplets are run
+    alone as a sub-batch (rows 100 to 163, in both call shapes)."""
+    from outfit_tpu_torch.iod import gauss
+
+    rows = slice(100, 164)
+    for a, k in _fg_calls(eph, cuda, "mixed", n_traj=256):
+        full = gauss._fg_correction(*a, **k)
+        tri, s_inv, u, dt01, dt21, *cand = a[:11]
+        sub = gauss._fg_correction(
+            type(tri)(*(f[rows] for f in tri)), s_inv[rows], u[rows], dt01[rows], dt21[rows],
+            *(c[rows] for c in cand), *a[11:], **k)
+        for x, y in zip(sub, full):
+            assert _same_bits(x, y[rows])
+
+
+@pytest.mark.parametrize("precision", ["mixed", "f64"])
+def test_fg_kernel_launches_per_iod_chunk(eph, cuda, precision):
+    """Two launches a mixed IOD chunk (the float32 candidate pass, the
+    float64 polish), one a float64 chunk; one read each."""
+    from outfit_tpu_torch import trace
+    from outfit_tpu_torch.iod import api, fg_correction_cuda
+
+    fg_correction_cuda.reset_launch_counts()
+    chunks, cands = [], api.gauss_candidates
+
+    def count(*a, **k):
+        chunks.append(1)
+        return cands(*a, **k)
+
+    reads = trace.sites.iod_fg.reads
+    api.gauss_candidates = count
+    try:
+        _fg_calls(eph, cuda, precision, n_traj=64)
+    finally:
+        api.gauss_candidates = cands
+    n = len(chunks)
+    assert n >= 1
+    want = {"float32": n, "float64": n} if precision == "mixed" else {"float32": 0, "float64": n}
+    assert fg_correction_cuda.launches == want
+    assert trace.sites.iod_fg.reads - reads == sum(want.values())
+
+
+@pytest.mark.parametrize("bad", ["cpu_tensor", "float16", "float32_epoch", "int_mask", "noncontiguous", "not_multiple"])
+def test_fg_kernel_wrapper_refuses_what_the_kernel_does_not_take(eph, cuda, bad):
+    from outfit_tpu_torch.iod import fg_correction_cuda, gauss
+
+    (a, k), = _fg_calls(eph, cuda, "f64", n_traj=8)
+    args, kw = gauss._fg_kernel_inputs(*a, **k)
+    args = list(args)
+    if bad == "cpu_tensor":
+        args[4] = args[4].cpu()
+    elif bad == "float16":
+        args[6], args[7], args[9], args[10] = (x.half() for x in (args[6], args[7], args[9], args[10]))
+        args[0], args[1], args[2] = (x.half() for x in args[:3])
+    elif bad == "float32_epoch":
+        args[8] = args[8].float()
+    elif bad == "int_mask":
+        args[11] = args[11].to(torch.int8)
+    elif bad == "noncontiguous":
+        args[7] = torch.empty((args[7].shape[0], 6), dtype=args[7].dtype, device=cuda)[:, ::2]
+    else:
+        args[6:12] = [x[:-1] for x in args[6:12]]
+    before = dict(fg_correction_cuda.launches)
+    with pytest.raises((TypeError, ValueError)):
+        fg_correction_cuda.correct(*args, **kw)
+    assert fg_correction_cuda.launches == before

@@ -45,12 +45,12 @@ VARIANTS = {1: "first", 2: "warp_ldg", 3: "tma"}
 
 def build_variants():
     """Compile variants.cu with the port's nvcc flags; returns k1_variant."""
-    from outfit_tpu_torch.ephem.chebyshev_cuda import _NVCC_FLAGS, _nvcc
+    from outfit_tpu_torch.utils.cuda_build import NVCC_FLAGS, nvcc
 
     out_dir = os.path.join(HERE, "_build")
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, "libk1_variants.so")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", lib, os.path.join(HERE, "variants.cu")],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", lib, os.path.join(HERE, "variants.cu")],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
