@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import DPI, ROT_ECLMJ2000_TO_EQUMJ2000, VLIGHT_AU
 from outfit_tpu_torch.elements.twobody import propagate_twobody
 from outfit_tpu_torch.elements.types import EquinoctialElements
@@ -64,11 +65,13 @@ def ephemeris_error_terms(eq: EquinoctialElements, obs_mjd, obs_ra, obs_dec, sig
 
 def rms_orbit_error(eq: EquinoctialElements, obs_mjd, obs_ra, obs_dec, sig_ra, sig_dec, obs_helio_pos_equ, window_mask):
     """Masked-window RMS = sqrt(sum(terms) / (2 N)); +inf when the orbit is
-    non-elliptic or the window is empty."""
-    terms = ephemeris_error_terms(eq, obs_mjd, obs_ra, obs_dec, sig_ra, sig_dec, obs_helio_pos_equ)
-    terms = torch.where(window_mask, terms, 0.0)
-    n = torch.sum(window_mask, dim=-1)
-    denom = 2.0 * torch.clamp(n, min=1).to(terms.dtype)
-    rms = torch.sqrt(torch.sum(terms, dim=-1) / denom)
-    ok = (eq.eccentricity() < 1.0) & (n > 0) & torch.isfinite(rms)
-    return torch.where(ok, rms, torch.inf)
+    non-elliptic or the window is empty.  Runs inside the span
+    ``iod.scoring`` of :mod:`outfit_tpu_torch.trace`."""
+    with trace.span("iod.scoring"):
+        terms = ephemeris_error_terms(eq, obs_mjd, obs_ra, obs_dec, sig_ra, sig_dec, obs_helio_pos_equ)
+        terms = torch.where(window_mask, terms, 0.0)
+        n = torch.sum(window_mask, dim=-1)
+        denom = 2.0 * torch.clamp(n, min=1).to(terms.dtype)
+        rms = torch.sqrt(torch.sum(terms, dim=-1) / denom)
+        ok = (eq.eccentricity() < 1.0) & (n > 0) & torch.isfinite(rms)
+        return torch.where(ok, rms, torch.inf)

@@ -549,6 +549,14 @@ def _fit_lsq_stream_escalating(
     def flush():
         """One batched pass per richer stage over the held datasets'
         failures; patch them in and yield the held datasets in order."""
+        if held:
+            with trace.span("escalate"):
+                refit()
+        out = [(ds, res) for ds, res, _ in held]
+        held.clear()
+        return out
+
+    def refit():
         parts, prefixes = [], []
         for hi, (ds, _res, fails) in enumerate(held):
             fset = set(fails)
@@ -556,33 +564,36 @@ def _fit_lsq_stream_escalating(
             if rows:
                 parts.append(ds.subset(np.concatenate(rows)))
                 prefixes.append(str(hi))
-        if parts:
-            # held-index-prefixed ids: the same id may occur in several
-            # held datasets, and the prefix selects the escalated noise
-            cur = ObsDataset.concat(parts, rename=lambda k, tid: f"{prefixes[k]}|{tid}")
-            for k, (p, c) in enumerate(stages[1:], start=1):
-                res_k = _fit_lsq(cur, ephem, p, c, seed, ut1, error_model, None, None, device, draws)
-                clean = {}
-                for mtid, r in res_k.items():
-                    hi_s, tid = mtid.split("|", 1)
-                    rr = dataclasses.replace(r, traj_id=tid)
-                    clean[mtid] = rr
-                    tgt = held[int(hi_s)][1]
-                    if isinstance(tgt, dict):
-                        tgt[tid] = rr
-                    else:
-                        tgt.patch_row(tid, rr)
-                if k == len(stages) - 1:
-                    break
-                # the predicate sees the clean ids, never the prefix
-                retry = {t for t, rr in clean.items() if retry_if(rr)}
-                rows = [g for t, g in cur.trajectory_groups() if t in retry and g.size]
-                if not rows:
-                    break
-                cur = cur.subset(np.concatenate(rows))
-        out = [(ds, res) for ds, res, _ in held]
-        held.clear()
-        return out
+        if not parts:
+            trace.escalation.add(flushes=1)
+            return
+        # held-index-prefixed ids: the same id may occur in several
+        # held datasets, and the prefix selects the escalated noise
+        cur = ObsDataset.concat(parts, rename=lambda k, tid: f"{prefixes[k]}|{tid}")
+        trace.escalation.add(flushes=1, rows=len(cur.traj_ids))
+        last = {}  # each escalated row's result at the last stage it ran
+        for k, (p, c) in enumerate(stages[1:], start=1):
+            res_k = _fit_lsq(cur, ephem, p, c, seed, ut1, error_model, None, None, device, draws)
+            clean = {}
+            for mtid, r in res_k.items():
+                hi_s, tid = mtid.split("|", 1)
+                rr = dataclasses.replace(r, traj_id=tid)
+                clean[mtid] = rr
+                tgt = held[int(hi_s)][1]
+                if isinstance(tgt, dict):
+                    tgt[tid] = rr
+                else:
+                    tgt.patch_row(tid, rr)
+            last.update(clean)
+            if k == len(stages) - 1:
+                break
+            # the predicate sees the clean ids, never the prefix
+            retry = {t for t, rr in clean.items() if retry_if(rr)}
+            rows = [g for t, g in cur.trajectory_groups() if t in retry and g.size]
+            if not rows:
+                break
+            cur = cur.subset(np.concatenate(rows))
+        trace.escalation.add(recovered=sum(not retry_if(rr) for rr in last.values()))
 
     for ds, res in _fit_lsq_stream(
         datasets, ephem, params0, cfg0, seed, ut1, error_model, device=device, draws=draws, **stream_kw,

@@ -30,6 +30,11 @@ and end on the ``time.time_ns()`` clock, the clock of ``torch.profiler``'s
 events: an idle gap of a profiler trace lies under the innermost span open
 at that time.  Nothing is written out.
 
+**Counts** (always on).  Events of the service modes that are neither a
+read nor a span: :data:`escalation` counts the flushes of
+``fit_lsq_stream_escalating``, the rows they hand to the richer stages and
+those of them a richer stage recovers (:meth:`Counts.add`).
+
 Counters are plain ints: read one twice and take the difference
 (:func:`counters` gives them all).  They are attributes by name, so a
 reader can name one as a path, ``sites.dop853.trips`` or
@@ -50,17 +55,20 @@ import time
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
-#: the spans the program opens, outermost first: ``fit`` (``_fit_lsq``),
+#: the spans the program opens, outermost first: ``escalate`` (a flush of
+#: ``fit_lsq_stream_escalating``: the held datasets' failures refitted by
+#: the richer stages and patched in), ``fit`` (``_fit_lsq``),
 #: ``fit.prepare`` (dataset preparation, the padded layout, the device
 #: bases' upload, the seeds' screen), ``observer_cache``
 #: (``ObserverCache.build``), ``iod`` (``_IodBatch.fit``),
-#: ``iod.fg_correction`` (``gauss._fg_correction``),
-#: ``correct`` (``lsq.api._correct``, one per device chunk),
-#: ``fit.assemble`` (``_add_results``, ``_as_table``), ``propagate``
-#: (``propagate_nbody``), ``dop853`` (``dop853_integrate``)
+#: ``iod.fg_correction`` (``gauss._fg_correction``), ``iod.scoring``
+#: (``scoring.rms_orbit_error``: the RMS scoring of the candidates and of
+#: the polished winners), ``correct`` (``lsq.api._correct``, one per device
+#: chunk), ``fit.assemble`` (``_add_results``, ``_as_table``),
+#: ``propagate`` (``propagate_nbody``), ``dop853`` (``dop853_integrate``)
 SPAN_NAMES = (
-    "fit", "fit.prepare", "observer_cache", "iod", "iod.fg_correction", "correct", "fit.assemble",
-    "propagate", "dop853",
+    "escalate", "fit", "fit.prepare", "observer_cache", "iod", "iod.fg_correction", "iod.scoring", "correct",
+    "fit.assemble", "propagate", "dop853",
 )
 
 #: the places the fit and propagation paths read the device: the loops'
@@ -176,6 +184,28 @@ class SpanStats:
         self.calls = self.wall_ns = self.reads = self.blocked_ns = 0
 
 
+class Counts:
+    """Named event counts of one part of the program, plain ints."""
+
+    def __init__(self, name, fields):
+        self.name, self.fields = name, fields
+        for f in fields:
+            setattr(self, f, 0)
+
+    def add(self, **deltas):
+        """Add ``deltas`` (field -> int) under the counters' lock."""
+        with _lock:
+            for f, v in deltas.items():
+                setattr(self, f, getattr(self, f) + int(v))
+
+
+#: ``fit_lsq_stream_escalating``'s flushes: ``flushes`` (flushes of held
+#: datasets), ``rows`` (rows handed to the richer stages), ``recovered``
+#: (of those, rows that the retry predicate no longer retries after the
+#: last richer stage they ran: with the default predicate, converged
+#: through the correction)
+escalation = Counts("escalation", ("flushes", "rows", "recovered"))
+
 #: the counters of each site, by name: ``sites.dop853``
 sites = SimpleNamespace(**{n: Site(n) for n in SITE_NAMES})
 #: the totals of each span, by name with ``_`` for ``.``: ``spans.fit_prepare``
@@ -245,9 +275,11 @@ def recording():
 
 
 def counters() -> dict:
-    """Every counter now: ``{"sites": {name: {...}}, "spans": {name: {...}}}``."""
+    """Every counter now: ``{"sites": {name: {...}}, "spans": {name: {...}},
+    "counts": {name: {...}}}``."""
     with _lock:
         return {
             "sites": {s.name: {k: getattr(s, k) for k in Site.__slots__[1:]} for s in vars(sites).values()},
             "spans": {s.name: {k: getattr(s, k) for k in SpanStats.__slots__[1:]} for s in _STATS.values()},
+            "counts": {c.name: {k: getattr(c, k) for k in c.fields} for c in (escalation,)},
         }
