@@ -41,6 +41,18 @@ Phases (each raises on failure, so the script exits non-zero and prints no
    the live trips' operations, counted with one Newton step a side, over
    67 TFLOP/s float32 or 34 TFLOP/s float64, the larger) and their ratio,
    and the plain loop's wall;
+3d. the correction's two-body Newton step kernel (``outfit_tpu_torch/csrc/
+   lsq_step.cuh``) against ``_single_iteration_plain`` on the card, every
+   step of a mixed fit of phase 8's profile on phase 6's 8,192 x 12
+   dataset (its three working types: the float32 pre-warm, float64 with
+   float32 Jacobians, the float64 final linearisation) and of phase 4's
+   seeded float64 fit (4,096 x 129): every valid observation's residuals,
+   masked partials, active flags and Kepler states bitwise, the sums over
+   observations and what follows from them within the bounds
+   :func:`step_against_plain` states; ptxas's registers and spills, and
+   for the last step of each type and shape the kernel's device time (as
+   phase 3's), its bound (every byte read or written once over 3.35 TB/s)
+   and their ratio, and the plain step's wall;
 4. the seeded least-squares path at real size: the real-cadence workload
    (the fixtures 2015AB, 8467 and 33803 tiled round-robin to 4096
    trajectories, re-noised with ``default_rng(0)`` at the catalog sigma),
@@ -195,7 +207,11 @@ the function); then per working type of the f-g correction kernel its
 launches summed over phases 4 to 15 (each phase's held to two per mixed
 IOD chunk on the card, one of each type, and one per float64 chunk) and
 phase 3c's times at the float32 candidate pass and the float64 IOD's
-candidate pass; the last line is ``{"ok": true, "device": {...}}``.
+candidate pass; then per working type of the two-body step kernel its
+launches summed over phases 4 to 15 (each phase's held to one per
+two-body Newton step on the card, of its type, with
+``trace.lsq_step.two_body`` counting every two-body step, card and CPU)
+and phase 3d's times at the type's largest shape; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -1335,6 +1351,206 @@ def phase_fg_kernel(dev, eph, synth):
     return out
 
 
+STEP_KERNEL_SRC = "outfit_tpu_torch/csrc/lsq_step.cuh"
+STEP_REPLACES = "outfit_tpu/lsq/iteration.py:single_iteration (XLA, no Pallas kernel)"
+
+
+def same_bits(x, y):
+    """Equal, NaN where NaN."""
+    import torch
+
+    return x.shape == y.shape and bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+def record_steps(fn):
+    """(fn(), the calls of ``single_iteration`` the correction loops made in
+    it: (args, kwargs) each)."""
+    from outfit_tpu_torch.lsq import loop
+
+    calls, si = [], loop.single_iteration
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return si(*a, **k)
+
+    loop.single_iteration = record
+    try:
+        out = fn()
+    finally:
+        loop.single_iteration = si
+    return out, calls
+
+
+def step_kind(call):
+    """A recorded step's working types as the kernel's launch counts name
+    them: ``float32``, ``float64_float32`` (float32 Jacobians) or ``float64``."""
+    import torch
+
+    a, k = call
+    jac = a[7] if len(a) > 7 else k.get("jacobian_dtype")
+    if a[0].dtype == torch.float32:
+        return "float32"
+    return "float64_float32" if jac == torch.float32 else "float64"
+
+
+def _most(x):
+    return float(x.max()) if x.numel() else 0.0
+
+
+def _ulps(x, y):
+    """|x - y| in units in the last place of y."""
+    import torch
+
+    return (x - y).abs() / torch.finfo(y.dtype).eps / y.abs().clamp_min(torch.finfo(y.dtype).tiny)
+
+
+def step_against_plain(call):
+    """The two-body step kernel (through ``single_iteration`` on the card)
+    against ``_single_iteration_plain`` on the same inputs; raises where
+    they part, and returns the largest deviations, for the record.
+
+    Bitwise for every valid observation: residuals, masked partials, the
+    active flags; the Kepler state for every slot, padding included.  Per
+    trajectory: ``num_measurements`` identical, the covariance bitwise
+    ``cholesky_inverse6`` of the kernel's own normal matrix (the kernel
+    inverts in its order).  The sums over observations are taken in another
+    order than ``torch.sum``'s, each of N terms off by at most (N - 1) eps
+    of their absolute sum on either side, so each normal-matrix entry lies
+    within 2N eps sqrt(N_ii N_jj) (the weights are positive, so
+    Cauchy-Schwarz bounds the absolute sum) and the RMS within N + 1 ulps
+    (q's terms are positive; the square root halves it).  With S the normal
+    matrix scaled to a unit diagonal, those perturb S by at most 12N eps
+    and the scaled right-hand side by 2N eps sqrt(6 q): the inversion's
+    verdict may differ only where ||S^-1|| 16N eps >= 1 (an eigenvalue
+    within the perturbation of zero: singular at the working precision,
+    as ~20 % of the float32 pre-warm's short arcs are), and where both
+    sides inverted, the scaled correction and its norm stay within the
+    first-order bound 16N ||S^-1|| eps (||y|| + sqrt(q)), the norm's times
+    sqrt(||S||) (12N from the sums, 4N for the two solves' own rounding;
+    Frobenius norms bound the spectral ones)."""
+    import torch
+
+    from outfit_tpu_torch.lsq import iteration
+    from outfit_tpu_torch.utils.linalg import cholesky_inverse6
+
+    a, k = call
+    got = iteration.single_iteration(*a, **k)
+    ref = iteration._single_iteration_plain(*a, **k)
+    valid = a[3].valid
+    for name in ("residual_ra", "residual_dec", "obs_active", "d_ra", "d_dec"):
+        x, y = getattr(got, name), getattr(ref, name)
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert same_bits(x[valid], y[valid]), (name, int((x[valid] != y[valid]).sum()))
+    assert same_bits(got.kepler, ref.kepler), int((got.kepler != ref.kepler).sum())
+    assert torch.equal(got.num_measurements, ref.num_measurements)
+    eye = torch.eye(6, dtype=got.normal_matrix.dtype, device=valid.device)
+    finite = torch.isfinite(got.normal_matrix).all(-1).all(-1)
+    cov, _ = cholesky_inverse6(torch.where(finite[:, None, None], got.normal_matrix, eye))
+    assert same_bits(got.covariance[got.inversion_ok], cov[got.inversion_ok])
+
+    eps = torch.finfo(got.corrected.dtype).eps
+    n = valid.shape[1]
+    # the normal matrix scaled to a unit diagonal, S = D^-1/2 N D^-1/2, and
+    # its inverse D^1/2 C D^1/2 from whichever side inverted it
+    both = got.inversion_ok & ref.inversion_ok
+    one = got.inversion_ok ^ ref.inversion_ok
+    cov_any = torch.where(got.inversion_ok[:, None, None], got.covariance, ref.covariance)
+    d = torch.diagonal(ref.normal_matrix, dim1=-2, dim2=-1).clamp_min(torch.finfo(got.corrected.dtype).tiny)
+    sd = d.sqrt()
+    outer = sd[:, :, None] * sd[:, None, :]
+    s_norm = (ref.normal_matrix / outer).flatten(1).norm(dim=1)
+    sinv_norm = (cov_any * outer).flatten(1).norm(dim=1)
+    q = ref.normalised_rms ** 2 * ref.num_measurements
+    y = sd * (ref.corrected - a[0])
+    unit = sinv_norm * eps * (y.norm(dim=1) + q.sqrt())
+    dy = sd * (got.corrected - ref.corrected).abs() - 2 * eps * sd * a[0].abs()
+    cn = (got.correction_norm - ref.correction_norm).abs()
+    nm, nr = got.normal_matrix[both], ref.normal_matrix[both]
+    seen = dict(
+        rows=int(valid.shape[0]), both=int(both.sum()), disagree=int(one.sum()),
+        disagree_min_sinv_eps=float((sinv_norm * eps)[one].min()) if one.any() else 0.0,
+        normal_eps=_most((nm - nr).abs() / outer[both]) / eps,
+        rms_ulps=_most(_ulps(got.normalised_rms[both], ref.normalised_rms[both])),
+        dy_units=_most((dy.amax(dim=1) / unit)[both]),
+        cn_units=_most((cn / (s_norm.sqrt() * unit))[both]),
+        sinv_eps_max=_most((sinv_norm * eps)[both]),
+    )
+    singular = sinv_norm * 16 * n * eps >= 1
+    assert bool((singular | ~one).all()), seen
+    assert seen["normal_eps"] <= 2 * n and seen["rms_ulps"] <= n + 1, seen
+    assert bool((dy.amax(dim=1) <= 16 * n * unit)[both].all()), seen
+    assert bool((cn <= 16 * n * s_norm.sqrt() * unit)[both].all()), seen
+    return seen
+
+
+def step_bound_ms(args, out):
+    """Least milliseconds of one step kernel call: every byte of its inputs
+    (the warm start's three views included) read once and of its outputs
+    written once, over the H100's 3.35 TB/s."""
+    nbytes = sum(x.numel() * x.element_size() for x in (*args, *out) if x is not None)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def phase_step_kernel(dev, eph, synth, ds, picks, stream_profile):
+    """Phase 3d: the correction's two-body Newton step kernel against its
+    plain version on the card, at the main path's shapes: every step of a
+    mixed fit of the stream's profile on the 8192 x 12 dataset (the float32
+    pre-warm, the mixed main loop, the float64 final linearisation) and of
+    phase 4's seeded float64 fit (4096 x 129), each held by
+    :func:`step_against_plain`.  For the last step of each working type and
+    shape: the kernel's device time (20 launches behind a sleep kernel),
+    its bound (:func:`step_bound_ms`) and their ratio, and the plain step's
+    wall (CUDA events, median of 3: it reads the device once a Kepler
+    trip).  Returns the ``kernels`` line's numbers per working type, at its
+    largest shape."""
+    from outfit_tpu_torch import DifferentialCorrectionConfig, fit_lsq
+    from outfit_tpu_torch.lsq import iteration, step_cuda
+
+    t = time.perf_counter()
+    _, report = step_cuda.build()
+    _log(f"step kernel build: {time.perf_counter() - t:.2f} s")
+    for line in report.splitlines():
+        if "lsq_step_kernel" in line and "Compiling entry" in line:
+            _log("  " + line.strip())
+        elif "spill" in line or ("registers" in line and "Used" in line):
+            _log("  " + line.strip())
+
+    iod, cfg = stream_profile
+    shapes = {
+        "stream": record_steps(lambda: fit_lsq(synth, eph, iod, cfg, 7, device=dev))[1],
+        "seeded": record_steps(lambda: fit_lsq(ds, eph, config=DifferentialCorrectionConfig(),
+                                               initial_orbits=seeds_for(ds, picks), device=dev))[1],
+    }
+    out = {}
+    for shape, calls in shapes.items():
+        last, worst = {}, {}
+        for c in calls:
+            name = step_kind(c)
+            last[name] = c
+            seen = step_against_plain(c)
+            w = worst.setdefault(name, dict(steps=0, disagree=0))
+            w["steps"] += 1
+            w["disagree"] = max(w["disagree"], seen["disagree"])
+            for key in ("normal_eps", "rms_ulps", "dy_units", "cn_units"):
+                w[key] = max(w.get(key, 0.0), seen[key])
+        for name, (a, k) in sorted(last.items()):
+            args, kw = iteration._step_kernel_inputs(*a[:5], a[7] if len(a) > 7 else k.get("jacobian_dtype"),
+                                                     k.get("kepler_warm"))
+            ms = device_ms(lambda: step_cuda.step(*args, **kw))
+            bound = step_bound_ms(args, step_cuda.step(*args, **kw))
+            plain_ms = _median_ms(lambda: iteration._single_iteration_plain(*a, **k), runs=3)
+            T, N = a[3].mjd.shape
+            _log(f"step kernel {name} {shape} {T} x {N}: {worst[name]} (largest over its steps: rows whose inversion "
+                 f"verdict differs, normal entries in eps of sqrt(N_ii N_jj), RMS ulps, correction and norm in units "
+                 f"of their bound); device {1e3 * ms!r} us, bound {1e3 * bound!r} us (bytes), share {bound / ms!r}; "
+                 f"plain step {plain_ms!r} ms (median of 3); every valid observation bitwise")
+            if name not in out or T * N > out[name]["n"]:
+                out[name] = dict(n=T * N, device_ms=ms, bound_ms=bound, bound_by="bytes", plain_ms=plain_ms)
+    if set(out) != set(step_cuda.launches):
+        raise AssertionError(f"step kernel: working types {sorted(out)} recorded, want {sorted(step_cuda.launches)}")
+    return out
+
+
 class counted:
     """Counts the calls of ``module.name`` inside the ``with`` block, and
     the host seconds spent in them."""
@@ -2413,6 +2629,73 @@ def fg_kernels(times, launches):
     ]
 
 
+def step_phase(tag, total, fn, *args):
+    """``fn(*args)`` with the two-body step kernel's launch counts reset and
+    the correction's Newton steps counted (``lsq/loop.py`` calls
+    ``single_iteration`` once a step): the launches of each working type
+    must equal the two-body steps of that type on a card, and
+    ``trace.lsq_step.two_body`` must have counted every two-body step, on
+    the card and on the CPU; an N-body step is neither.  Adds the launches
+    to ``total`` and returns what ``fn`` returns."""
+    import threading
+
+    from outfit_tpu_torch import trace
+    from outfit_tpu_torch.lsq import loop, step_cuda
+
+    want = dict.fromkeys(step_cuda.launches, 0)
+    steps = [0]
+    lock = threading.Lock()
+    si = loop.single_iteration
+
+    def step(*a, **k):
+        prop = a[5] if len(a) > 5 else k.get("propagator")
+        if prop is None or not prop.nbody:
+            with lock:
+                steps[0] += 1
+                if a[3].mjd.is_cuda:
+                    want[step_kind((a, k))] += 1
+        return si(*a, **k)
+
+    step_cuda.reset_launch_counts()
+    before = trace.lsq_step.two_body
+    loop.single_iteration = step
+    try:
+        out = fn(*args)
+    finally:
+        loop.single_iteration = si
+    got, counted = dict(step_cuda.launches), trace.lsq_step.two_body - before
+    if got != want or counted != steps[0]:
+        raise AssertionError(f"{tag}: step kernel launches {got}, want {want} (one a two-body step on a card); "
+                             f"trace.lsq_step.two_body counted {counted} of {steps[0]} two-body steps")
+    _log(f"{tag}: step kernel launches {got}; two-body steps {steps[0]}, {steps[0] - sum(want.values())} on the CPU")
+    for work in total:
+        total[work] += got[work]
+    return out
+
+
+def step_kernels(times, launches):
+    """The ``kernels`` line's entries of the two-body step kernel, one per
+    working type: ``launches`` summed over the main path's phases
+    (:func:`step_phase`) and phase 3d's times at the type's largest shape."""
+    return [
+        {
+            "name": f"lsq_step_{work}",
+            "route": "cuda",
+            "source": STEP_KERNEL_SRC,
+            "replaces": STEP_REPLACES,
+            "launches": launches[work],
+            "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            # no PyTorch call runs a trajectory's Newton step, Kepler solves
+            # to their own exits, in one launch
+            "library_ms": None,
+        }
+        for work, t in sorted(times.items())
+    ]
+
+
 def main():
     sys.path.insert(0, HERE)
     dev = phase_device()
@@ -2428,11 +2711,6 @@ def main():
     planets_err = phase_kernel_check_planets(dev, eph, synth)
     fg = phase_fg_kernel(dev, eph, synth)
     times["body"]["err"] = max(times["body"]["err"], planets_err)
-    # the f-g kernel's launches of the main path, phases 4 to 15
-    fg_launches = {"float32": 0, "float64": 0}
-    launches, cold4, warm4, res4 = fg_phase("seeded 4096", fg_launches, phase_slice, dev, eph, ds, picks)
-    ref = dict(ds4=ds, seeds4=seeds_for(ds, picks), res4=res4, synth=synth)
-    fg_phase("card against CPU 64", fg_launches, phase_cross_check, dev, eph, ds, picks)
 
     from outfit_tpu_torch import DifferentialCorrectionConfig, IODParams
 
@@ -2450,10 +2728,21 @@ def main():
     rc_lean_cfg = DifferentialCorrectionConfig(divergence_grace_iterations=2, precision="mixed",
                                                max_newton_iterations=4, prewarm_max_iterations=16,
                                                max_outlier_rejection_passes=3)
+    step = phase_step_kernel(dev, eph, synth, ds, picks, (headline, headline_cfg))
+    # the f-g and step kernels' launches of the main path, phases 4 to 15
+    fg_launches = {"float32": 0, "float64": 0}
+    step_launches = {"float32": 0, "float64_float32": 0, "float64": 0}
+
+    def main_phase(tag, phase, *args):
+        return fg_phase(tag, fg_launches, step_phase, tag, step_launches, phase, *args)
+
+    launches, cold4, warm4, res4 = main_phase("seeded 4096", phase_slice, dev, eph, ds, picks)
+    ref = dict(ds4=ds, seeds4=seeds_for(ds, picks), res4=res4, synth=synth)
+    main_phase("card against CPU 64", phase_cross_check, dev, eph, ds, picks)
 
     def timed_phase(tag, phase, *args):
         t = time.perf_counter()
-        out = fg_phase(tag, fg_launches, phase, *args)
+        out = main_phase(tag, phase, *args)
         _log(f"{tag} phase: {time.perf_counter() - t!r} s")
         return out
 
@@ -2506,7 +2795,7 @@ def main():
         }
         for name, site in (("chebyshev_body", "body"), ("chebyshev_frame", "frame"))
     ]
-    print(json.dumps({"kernels": kernels + fg_kernels(fg, fg_launches)}))
+    print(json.dumps({"kernels": kernels + fg_kernels(fg, fg_launches) + step_kernels(step, step_launches)}))
     print(json.dumps({
         "ok": True,
         "device": {

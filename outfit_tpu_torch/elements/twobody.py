@@ -25,6 +25,11 @@ from outfit_tpu_torch.kepler.angles import principal_angle
 from outfit_tpu_torch.utils.tensors import as_float, lanewise
 
 _EPS = torch.finfo(torch.float64).eps
+#: the Kepler solve's trip cap, and its residual acceptance |F - k sin F +
+#: h cos F - lam| <= 1e-12 rad, as in the JAX package (there for emulated
+#: f64; here the step test fires first in all but rounding-stall lanes)
+MAX_ITER = 25
+RES_TOL = 1e-12
 
 
 class TwoBodyResult(NamedTuple):
@@ -66,7 +71,7 @@ def _sincos_step(d):
 
 
 def solve_generalized_kepler(
-    eq: EquinoctialElements, mean_longitude_t1, max_iter=25, warm=None
+    eq: EquinoctialElements, mean_longitude_t1, max_iter=MAX_ITER, warm=None
 ):
     """Newton on F - k sin F + h cos F = lambda(t1) from x0 = pi + varpi,
     carrying (sin F, cos F) through the loop by rotation with the step.
@@ -80,10 +85,7 @@ def solve_generalized_kepler(
     lam = mean_longitude_t1
     eps = torch.finfo(lam.dtype).eps
     tol = 100.0 * eps
-    # residual acceptance |F - k sinF + h cosF - lam| <= 1e-12 rad, as in the
-    # JAX package (there for emulated f64; here the step test fires first in
-    # all but rounding-stall lanes)
-    res_tol = 1e-12
+    res_tol = RES_TOL
     shape = lam.shape
 
     e2 = eq.h**2 + eq.k**2

@@ -19,6 +19,12 @@ Every contraction is written as broadcast-multiply + sum, the JAX
 package's summation form (``einsum``/``@`` would sum in another order, and
 the Newton loop can then stop one trip apart near its threshold).
 
+On a CUDA device the two-body step runs as one kernel, one warp per
+trajectory (``lsq/step_cuda.py``, ``csrc/lsq_step.cuh``), with no device
+read; on the CPU, and as the kernel's reference, as
+:func:`_single_iteration_plain`.  The N-body step keeps its own path
+(``propagate_nbody``) on every device.
+
 Shapes: trajectories T, padded observations N.  Selection codes:
 0 = Active, 1 = Rejected, 2 = ForcedOut.
 """
@@ -28,9 +34,11 @@ from typing import NamedTuple
 
 import torch
 
+from outfit_tpu_torch import trace
 from outfit_tpu_torch.constants import DPI, ROT_ECLMJ2000_TO_EQUMJ2000, VLIGHT_AU
 from outfit_tpu_torch.elements.twobody import propagate_twobody
 from outfit_tpu_torch.elements.types import EquinoctialElements
+from outfit_tpu_torch.lsq import step_cuda
 from outfit_tpu_torch.utils.linalg import cholesky_inverse6
 from outfit_tpu_torch.utils.tensors import device_constant, lanewise
 
@@ -170,7 +178,57 @@ def single_iteration(
     jacobian_dtype=None,
     kepler_warm=None,
 ) -> IterationResult:
-    """One batched Newton step."""
+    """One batched Newton step: a two-body step on a CUDA device as the
+    kernel of ``lsq/step_cuda.py``, else :func:`_single_iteration_plain`.
+    ``trace.lsq_step.two_body`` counts the two-body steps on any device."""
+    if propagator is None or not propagator.nbody:
+        trace.lsq_step.add(two_body=1)
+        if obs.mjd.device.type == "cuda":
+            args, kw = _step_kernel_inputs(elements_vec, epoch, selection, obs, free_elements, jacobian_dtype,
+                                           kepler_warm)
+            return IterationResult(*step_cuda.step(*args, **kw))
+    return _single_iteration_plain(elements_vec, epoch, selection, obs, free_elements, propagator, ephem,
+                                   jacobian_dtype, kepler_warm)
+
+
+def _step_kernel_inputs(elements_vec, epoch, selection, obs: ObsArrays, free_elements, jacobian_dtype=None,
+                        kepler_warm=None):
+    """:func:`single_iteration`'s two-body arguments as the kernel takes them
+    (:func:`outfit_tpu_torch.lsq.step_cuda.step`): contiguous tensors on the
+    observations' device, epochs and MJDs in float64, the selection in
+    int32, the free elements as a bool tensor, the warm start's three
+    tensors as given (the kernel reads them at their strides), and the
+    Jacobians' type, the working type unless another is asked for.
+    Returns ``(args, kwargs)``."""
+    dev = obs.mjd.device
+
+    def c(x, dtype=None):
+        return None if x is None else x.to(dtype or x.dtype).contiguous()
+
+    warm = (None, None, None) if kepler_warm is None else tuple(kepler_warm)
+    args = (
+        c(elements_vec), c(epoch, torch.float64), c(selection, torch.int32), c(obs.mjd, torch.float64),
+        *(c(x) for x in (obs.ra, obs.dec, obs.sigma_ra, obs.sigma_dec, obs.helio_pos, obs.valid, obs.bias_ra,
+                         obs.bias_dec)),
+        *warm, torch.as_tensor(free_elements, dtype=torch.bool, device=dev),
+    )
+    return args, dict(jacobian_dtype=jacobian_dtype or elements_vec.dtype)
+
+
+def _single_iteration_plain(
+    elements_vec,
+    epoch,
+    selection,
+    obs: ObsArrays,
+    free_elements,
+    propagator=None,
+    ephem=None,
+    jacobian_dtype=None,
+    kepler_warm=None,
+) -> IterationResult:
+    """:func:`single_iteration` as batched tensor operations: the CPU's path,
+    the N-body path on every device, and the plain version the kernel is
+    held against."""
     ra_c, dec_c, d_ra, d_dec, prop_ok, kepler = observation_partials(
         elements_vec, epoch, obs, propagator, ephem, jacobian_dtype, kepler_warm
     )

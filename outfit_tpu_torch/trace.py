@@ -30,10 +30,11 @@ and end on the ``time.time_ns()`` clock, the clock of ``torch.profiler``'s
 events: an idle gap of a profiler trace lies under the innermost span open
 at that time.  Nothing is written out.
 
-**Counts** (always on).  Events of the service modes that are neither a
-read nor a span: :data:`escalation` counts the flushes of
-``fit_lsq_stream_escalating``, the rows they hand to the richer stages and
-those of them a richer stage recovers (:meth:`Counts.add`).
+**Counts** (always on).  Events that are neither a read nor a span:
+:data:`escalation` counts the flushes of ``fit_lsq_stream_escalating``, the
+rows they hand to the richer stages and those of them a richer stage
+recovers; :data:`lsq_step` the correction's two-body Newton steps
+(:meth:`Counts.add`).
 
 Counters are plain ints: read one twice and take the difference
 (:func:`counters` gives them all).  They are attributes by name, so a
@@ -205,6 +206,9 @@ class Counts:
 #: last richer stage they ran: with the default predicate, converged
 #: through the correction)
 escalation = Counts("escalation", ("flushes", "rows", "recovered"))
+#: the differential correction's Newton steps: ``two_body`` (two-body steps
+#: on any device; on a card each is one launch of ``lsq/step_cuda.py``)
+lsq_step = Counts("lsq_step", ("two_body",))
 
 #: the counters of each site, by name: ``sites.dop853``
 sites = SimpleNamespace(**{n: Site(n) for n in SITE_NAMES})
@@ -281,5 +285,5 @@ def counters() -> dict:
         return {
             "sites": {s.name: {k: getattr(s, k) for k in Site.__slots__[1:]} for s in vars(sites).values()},
             "spans": {s.name: {k: getattr(s, k) for k in SpanStats.__slots__[1:]} for s in _STATS.values()},
-            "counts": {c.name: {k: getattr(c, k) for k in c.fields} for c in (escalation,)},
+            "counts": {c.name: {k: getattr(c, k) for k in c.fields} for c in (escalation, lsq_step)},
         }

@@ -35,6 +35,14 @@ and lanes at the site ``iod_fg``, in the float32 (L, K), float64 (L, K) and
 float64 polish (T,) call shapes; a candidate bitwise the same in a
 sub-batch; two launches a mixed IOD chunk and one a float64 chunk; the
 wrapper's refusals.
+The correction's two-body step kernel against ``_single_iteration_plain``
+in its three pairs of working types, at the stream's ~8,170 x 12 and at
+real arcs tiled to 4,096 x 129, cold and warm, with edge rows (no
+measurement, a non-finite normal matrix, Kepler solves that run out, a
+fixed element): each valid observation's outputs bitwise, the sums over
+observations at the bounds ``chip_smoke.step_against_plain`` states (the
+check ``chip_smoke.py``'s phase 3d runs too); a trajectory bitwise alone
+and in its batch; one launch a two-body step; the wrapper's refusals.
 """
 
 import os
@@ -825,3 +833,234 @@ def test_fg_kernel_wrapper_refuses_what_the_kernel_does_not_take(eph, cuda, bad)
     with pytest.raises((TypeError, ValueError)):
         fg_correction_cuda.correct(*args, **kw)
     assert fg_correction_cuda.launches == before
+
+
+# -- the two-body Newton step of the differential correction ----------------
+
+STREAM_IOD = dict(n_noise_realizations=3, precision="mixed", newton_max_it=20, max_triplets=2)
+STREAM_CFG = dict(precision="mixed", divergence_grace_iterations=2, max_newton_iterations=4, prewarm_max_iterations=16)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root: the step kernel's check
+    and the recording of a fit's steps are shared with its phase 3d."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _record_steps(fn):
+    """(fn(), the calls of ``single_iteration`` the correction loops made in
+    it: (args, kwargs) each)."""
+    return _chip_smoke().record_steps(fn)
+
+
+def _stream_steps(eph, dev, n_traj):
+    """The steps of a mixed fit of the stream's profile (``n_traj`` short arcs
+    of 12 observations): the float32 pre-warm, the mixed main loop and the
+    float64 final linearisation."""
+    from short_arcs import short_arcs
+
+    ds = short_arcs(n_traj, 12, eph, seed=11)
+    return _record_steps(lambda: fit_lsq(ds, eph, IODParams(**STREAM_IOD), DifferentialCorrectionConfig(**STREAM_CFG),
+                                         7, device=dev))[1]
+
+
+def _seeded_steps(eph, dev):
+    """The float64 steps of a seeded fit of three real arcs (37, 61 and 129
+    observations, padded to 129), from the stored orbits."""
+    import json
+
+    names = ("2015AB", "8467", "33803")
+    with open(os.path.join(DATA, "iod_seeds_analytic.json"), encoding="utf-8") as fh:
+        stored = json.load(fh)
+    seeds = {tid: FitResult(**{k: (np.array(v) if isinstance(v, list) else v) for k, v in d.items()})
+             for n in names for tid, d in stored[n].items()}
+    ds = ObsDataset.from_mpc_80_col_files([os.path.join(DATA, f"{n}.obs") for n in names])
+    return _record_steps(lambda: fit_lsq(ds, eph, config=DifferentialCorrectionConfig(),
+                                         error_model=ErrorModel.fcct14(), initial_orbits=seeds, device=dev))[1]
+
+
+def _tile(call, T):
+    """A recorded step's inputs tiled to ``T`` trajectories (rows repeated
+    in order); the warm starts stay views at their strides."""
+    from outfit_tpu_torch.lsq.iteration import ObsArrays
+
+    a, k = call
+    rows = torch.arange(T, device=a[0].device) % a[0].shape[0]
+    obs = ObsArrays(*(None if x is None else x[rows] for x in a[3]))
+    warm = k.get("kepler_warm")
+    if warm is not None:
+        base = torch.stack([w[rows] for w in warm], dim=-1)
+        warm = (base[..., 0], base[..., 1], base[..., 2])
+    return (a[0][rows], a[1][rows], a[2][rows], obs, *a[4:]), dict(k, kepler_warm=warm)
+
+
+def _edge_rows(call):
+    """The step with rows 1-4 made to fail or run out: every observation of
+    row 1 rejected (no measurement), row 2's elements NaN (a normal matrix
+    that is not finite), row 3's semi-major axis negative (no mean motion:
+    every Kepler solve runs out its 25 trips), row 4 cold-started; and the
+    last element fixed."""
+    from outfit_tpu_torch.lsq.iteration import SEL_REJECTED
+
+    a, k = call
+    el, sel = a[0].clone(), a[2].clone()
+    sel[1] = SEL_REJECTED
+    el[2] = float("nan")
+    el[3, 0] = -el[3, 0]
+    warm = k.get("kepler_warm")
+    if warm is not None:
+        warm = tuple(w.clone() for w in warm)
+        for w in warm:
+            w[4] = float("nan")
+    return (el, a[1], sel, a[3], (True,) * 5 + (False,), *a[5:]), dict(k, kepler_warm=warm)
+
+
+def _step_against_plain(call):
+    """The kernel's step against ``_single_iteration_plain`` on the same
+    inputs, at the bounds ``chip_smoke.step_against_plain`` states (each
+    valid observation bitwise; the sums over observations, in the kernel's
+    own order, at their rounding bounds); prints the largest deviations."""
+    seen = _chip_smoke().step_against_plain(call)
+    print(tuple(call[0][3].mjd.shape), _kind(call), seen)
+    return seen
+
+
+@pytest.fixture(scope="module")
+def stream_steps(eph):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _stream_steps(eph, torch.device("cuda"), 8192)
+
+
+@pytest.fixture(scope="module")
+def seeded_steps(eph):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _seeded_steps(eph, torch.device("cuda"))
+
+
+def _kind(call):
+    """A recorded step's working types: (propagation, Jacobians)."""
+    a, k = call
+    jac = a[7] if len(a) > 7 else k.get("jacobian_dtype")
+    return a[0].dtype, jac or a[0].dtype
+
+
+@pytest.mark.parametrize("kind", [(torch.float32, torch.float32), (torch.float64, torch.float32),
+                                  (torch.float64, torch.float64)], ids=["f32", "f64_f32", "f64"])
+def test_lsq_step_kernel_matches_plain_at_the_streams_shape(stream_steps, kind):
+    """Every step of its working types in a mixed fit of 8,192 short arcs
+    (the rows the IOD fitted, ~8,170; the first step cold-started, the rest
+    warm), and the first one's edge rows, against the plain step."""
+    calls = [c for c in stream_steps if _kind(c) == kind]
+    assert calls and calls[0][0][0].shape[0] > 8000 and calls[0][0][3].mjd.shape[1] == 12
+    for c in calls:
+        _step_against_plain(c)
+    _step_against_plain(_edge_rows(calls[0]))
+
+
+def test_lsq_step_kernel_matches_plain_at_a_catalogue_tiling(seeded_steps):
+    """The float64 steps of the seeded real arcs tiled to 4,096 x 129 (37-
+    and 61-observation arcs padded), cold and warm, and the edge rows."""
+    assert {_kind(c) for c in seeded_steps} == {(torch.float64, torch.float64)}
+    for c in (seeded_steps[0], seeded_steps[1], seeded_steps[-1]):
+        t = _tile(c, 4096)
+        assert t[0][3].mjd.shape == (4096, 129) and not bool(t[0][3].valid.all())
+        _step_against_plain(t)
+    _step_against_plain(_edge_rows(_tile(seeded_steps[1], 4096)))
+
+
+def test_lsq_step_kernel_edge_rows_behave(seeded_steps):
+    """The edge rows do what they are made for: rows 1 to 3 fail the
+    inversion, row 3's Kepler solves ran out (its observations not usable),
+    and the fixed element does not move."""
+    from outfit_tpu_torch.elements.twobody import propagate_twobody
+    from outfit_tpu_torch.elements.types import EquinoctialElements
+    from outfit_tpu_torch.lsq import iteration
+
+    a, k = _edge_rows(_tile(seeded_steps[1], 64))
+    res = iteration.single_iteration(*a, **k)
+    assert not res.inversion_ok[1:4].any() and bool(res.inversion_ok[0])
+    eq = EquinoctialElements(a[1][3:4, None], *(a[0][3:4, None, i] for i in range(6)))
+    st = propagate_twobody(eq, a[1][3:4, None], a[3].mjd[3:4], compute_derivatives=False)
+    assert not st.converged.any() and not res.obs_active[3].any()
+    assert _same_bits(res.corrected[:, 5], a[0][:, 5])
+
+
+def test_lsq_step_trajectory_independent_of_its_batch(seeded_steps, stream_steps):
+    """A trajectory's outputs, its sums and solve included, are bitwise the
+    same alone as inside a batch of 4,096 (and of 8,192 in the stream)."""
+    from outfit_tpu_torch.lsq import iteration
+
+    for call in (_tile(seeded_steps[1], 4096), stream_steps[3]):
+        a, k = call
+        full = iteration.single_iteration(*a, **k)
+        for r in (0, 1, 2, 1000, 4095):
+            sl = slice(r, r + 1)
+            warm = k.get("kepler_warm")
+            sub = iteration.single_iteration(
+                a[0][sl], a[1][sl], a[2][sl], type(a[3])(*(None if x is None else x[sl] for x in a[3])), *a[4:],
+                **dict(k, kepler_warm=None if warm is None else tuple(w[sl] for w in warm)))
+            for x, y in zip(sub, full):
+                assert _same_bits(x, y[sl]), r
+
+
+def test_lsq_step_launches_per_correction(eph, cuda):
+    """One launch per two-body step, every step of a mixed and a float64
+    correction: the pre-warm's in float32, the main loop's with float32
+    Jacobians, the final linearisation's in float64."""
+    from outfit_tpu_torch import trace
+    from outfit_tpu_torch.lsq import step_cuda
+
+    for precision in ("mixed", "f64"):
+        step_cuda.reset_launch_counts()
+        before = trace.lsq_step.two_body
+        calls = _stream_steps(eph, cuda, 256) if precision == "mixed" else _seeded_steps(eph, cuda)
+        kinds = [_kind(c) for c in calls]
+        assert trace.lsq_step.two_body - before == len(calls) > 0
+        assert step_cuda.launches == {
+            "float32": kinds.count((torch.float32, torch.float32)),
+            "float64_float32": kinds.count((torch.float64, torch.float32)),
+            "float64": kinds.count((torch.float64, torch.float64))}
+        if precision == "mixed":
+            assert all(step_cuda.launches.values())
+
+
+@pytest.mark.parametrize("bad", ["cpu_tensor", "float16", "float32_epoch", "int64_selection", "noncontiguous",
+                                 "short_mjd", "one_bias", "two_warm", "f32_f64"])
+def test_lsq_step_wrapper_refuses_what_the_kernel_does_not_take(seeded_steps, cuda, bad):
+    from outfit_tpu_torch.lsq import iteration, step_cuda
+
+    a, k = seeded_steps[1]
+    args, kw = iteration._step_kernel_inputs(*a[:5], _kind(seeded_steps[1])[1], k.get("kepler_warm"))
+    args = list(args)
+    if bad == "cpu_tensor":
+        args[4] = args[4].cpu()
+    elif bad == "float16":
+        args[0], args[4:9] = args[0].half(), [x.half() for x in args[4:9]]
+    elif bad == "float32_epoch":
+        args[1] = args[1].float()
+    elif bad == "int64_selection":
+        args[2] = args[2].long()
+    elif bad == "noncontiguous":
+        args[4] = torch.empty((args[4].shape[0], 2 * args[4].shape[1]), dtype=args[4].dtype, device=cuda)[:, ::2]
+    elif bad == "short_mjd":
+        args[3] = args[3][:, :-1].contiguous()
+    elif bad == "one_bias":
+        args[10] = torch.zeros_like(args[4])
+    elif bad == "two_warm":
+        args[14] = None
+    else:
+        kw = dict(jacobian_dtype=torch.float64)
+        args[0] = args[0].float()
+        args[4:9] = [x.float() for x in args[4:9]]
+        args[12:15] = [None] * 3
+    before = dict(step_cuda.launches)
+    with pytest.raises((TypeError, ValueError)):
+        step_cuda.step(*args, **kw)
+    assert step_cuda.launches == before
