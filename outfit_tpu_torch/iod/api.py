@@ -92,6 +92,62 @@ class FitResult:
         return KeplerianElements(self.epoch, *self.elements[:6])
 
 
+class _IodColumns:
+    """Per-trajectory IOD results (or a seeded fit's seeds) as columns in
+    dataset order: ok, RMS, kind, native elements, equinoctial elements,
+    epoch, corrected.  ``errors`` maps a failed row to its error text; a
+    seed map also lists there an ok seed without equinoctial elements, and
+    leaves out a trajectory it has no seed for.  A new one has every row
+    failed, with no text yet."""
+
+    def __init__(self, traj_ids):
+        T = len(traj_ids)
+        self.traj_ids, self.errors = list(traj_ids), {}
+        self.ok, self.corrected, self.kind = np.zeros(T, bool), np.zeros(T, bool), np.zeros(T, np.int64)
+        self.rms, self.epoch = np.full(T, np.inf), np.zeros(T)
+        self.elements, self.equinoctial = np.full((T, 6), np.nan), np.full((T, 6), np.nan)
+
+    @classmethod
+    def of(cls, traj_ids, orbits):
+        """The columns of a ``{traj_id: FitResult}`` map, read once, and its
+        objects in ``traj_ids`` order (None where it has none)."""
+        cols = cls(traj_ids)
+        iods = [orbits.get(tid) for tid in cols.traj_ids]
+        cols.errors = {i: iod.error for i, iod in enumerate(iods)
+                       if iod is not None and (not iod.ok or iod.equinoctial is None)}
+        ok = [i for i, iod in enumerate(iods) if iod is not None and iod.ok]
+        if ok:
+            cols.ok[ok] = True
+            for name in ("rms", "kind", "corrected", "epoch"):
+                getattr(cols, name)[ok] = [getattr(iods[i], name) for i in ok]
+            for name in ("elements", "equinoctial"):
+                getattr(cols, name)[ok] = [_NAN6 if v is None else v for v in (getattr(iods[i], name) for i in ok)]
+        return cols, iods
+
+    def results(self) -> Dict[str, FitResult]:
+        """The ``{traj_id: FitResult}`` dict, in dataset order."""
+        cols = (self.ok, self.rms, self.corrected, self.epoch, self.kind, self.elements, self.equinoctial)
+        rows = _fit_results(self.traj_ids, np.arange(len(self.traj_ids)), cols, self.errors.__getitem__)
+        return {r.traj_id: r for r in rows}
+
+
+_NAN6 = np.full(6, np.nan)
+
+
+def _fit_results(traj_ids, rows, cols, error):
+    """``FitResult`` objects of the rows ``rows`` (ids ``traj_ids``) of the
+    columns ``cols``: ok, RMS, corrected, epoch, kind, native elements,
+    equinoctial elements; ``error(row)`` gives a failed row's text."""
+    ok, rms, corrected, epoch, kind = (c[rows].tolist() for c in cols[:5])
+    el, eq = cols[5:]
+    return [
+        FitResult(tid, ok=True, rms=rms[j], corrected=corrected[j], epoch=epoch[j], kind=kind[j], elements=el[i],
+                  equinoctial=eq[i])
+        if ok[j] else FitResult(tid, ok=False, error=error(i))
+        for j, (i, tid) in enumerate(zip(rows.tolist(), traj_ids))
+    ]
+
+
 def prepare_dataset(dataset, gap_max: float, error_model: Optional[ErrorModel]) -> None:
     """Apply ``error_model`` (then the batch RMS correction); datasets
     without sigmas get FCCT14."""
@@ -375,7 +431,7 @@ class _IodBatch:
     def __init__(self, dataset, params: IODParams, seed, layout, devices, draws=None, slim=False):
         self.dataset, self.params, self.seed, self.slim = dataset, params, seed, slim
         self.valid, self.glob = layout
-        self.results: Dict[str, FitResult] = {}
+        self.cols = _IodColumns(dataset.traj_ids)
         Tall = dataset.n_trajectories
         self.n_real = params.n_noise_realizations + 1
 
@@ -384,7 +440,7 @@ class _IodBatch:
 
         rows = np.zeros(0, np.int64)
         if len(dataset.mjd_tt) == 0 or Tall == 0:
-            self.results = {tid: FitResult(tid, ok=False, error=infeasible(0.0, 0)) for tid in dataset.traj_ids}
+            self.cols.errors = dict.fromkeys(range(Tall), infeasible(0.0, 0))
         else:
             self.counts = self.valid.sum(axis=1)
             self.epochs_pad = np.where(self.valid, dataset.mjd_tt[self.glob], 0.0)
@@ -402,17 +458,15 @@ class _IodBatch:
                 for t in np.nonzero(bad_traj)[0]:
                     sel = (dataset.traj_index == t) & bad_obs
                     codes = sorted({dataset.observers[i].code or "?" for i in np.unique(dataset.observer_index[sel])})
-                    tid = dataset.traj_ids[t]
-                    self.results[tid] = FitResult(tid, ok=False, error=f"UnknownObservatory({', '.join(codes)})")
+                    self.cols.errors[int(t)] = f"UnknownObservatory({', '.join(codes)})"
             rows = np.nonzero(~bad_traj)[0]
 
         # --- triplet enumeration, each device on a share of the rows --------
         shares = [rows[a:b] for a, b in split_bounds(rows.size, len(devices))]
         enum = map_devices(devices, self._enumerate, shares)
         kt = np.concatenate([k for _, _, k in enum])
-        for t in rows[kt == 0]:
-            tid = dataset.traj_ids[t]
-            self.results[tid] = FitResult(tid, ok=False, error=infeasible(arc[t], int(self.counts[t])))
+        for t in rows[kt == 0].tolist():
+            self.cols.errors[t] = infeasible(arc[t], int(self.counts[t]))
         self.kept = rows[kt > 0]
         self.kt = kt[kt > 0]
         # each share's (trips, ktrips) of its kept rows, on its device, and
@@ -463,18 +517,19 @@ class _IodBatch:
             return parts[0]
         return tuple(torch.cat(x) for x in zip(*parts))
 
-    def part(self, device, i, base) -> Dict[str, FitResult]:
-        """The results of device ``i``'s chunk of the kept rows, fitted on
-        ``device``; ``base()`` gives :func:`base_arrays` there."""
+    def part(self, device, i, base):
+        """Device ``i``'s chunk of the kept rows fitted on ``device``
+        (``base()`` gives :func:`base_arrays` there): the chunk's bounds in
+        the kept rows and its host columns (rms, kind, elements, equinoctial
+        elements, epoch, corrected), or None for an empty chunk."""
         ka, kb = self.chunks[i]
         if ka >= kb:
-            return {}
+            return None
         i64 = dict(dtype=torch.int64, device=device)
-        kept, kt = self.kept[ka:kb], self.kt[ka:kb]
+        kept = self.kept[ka:kb]
         trips, ktrips = self._kept_trips(ka, kb, device)
-        kept_tids = [self.dataset.traj_ids[t] for t in kept]
         if self.z is None:
-            keys = torch.as_tensor(trajectory_keys(self.seed, kept_tids), **i64)
+            keys = torch.as_tensor(trajectory_keys(self.seed, [self.dataset.traj_ids[t] for t in kept]), **i64)
             z = draw_noise(keys, self.params.max_triplets, self.n_real)
         else:
             z = torch.as_tensor(self.z[ka:kb], dtype=torch.float64, device=device)
@@ -497,29 +552,25 @@ class _IodBatch:
             if self.slim:
                 out = (out[0].float(), out[1], out[2].float()) + tuple(out[3:])
             outs.append([trace.sites.iod_copyback.cpu(o).numpy() for o in out])
-        rms, kind, el, eqv, epoch, corrected = (np.concatenate(c) for c in zip(*outs))
-        rms, el = rms.astype(np.float64, copy=False), el.astype(np.float64, copy=False)
+        return ka, kb, [np.concatenate(c) for c in zip(*outs)]
 
-        results = {}
-        finite_l = np.isfinite(rms).tolist()
-        rms_l, corr_l, epoch_l, kind_l = rms.tolist(), corrected.tolist(), epoch.tolist(), kind.tolist()
-        for j, tid in enumerate(kept_tids):
-            if not finite_l[j]:
-                results[tid] = FitResult(tid, ok=False, error=str(NoViableOrbit(int(kt[j]) * self.n_real)))
-                continue
-            results[tid] = FitResult(
-                tid, ok=True, rms=rms_l[j], corrected=bool(corr_l[j]), epoch=epoch_l[j],
-                kind=kind_l[j], elements=el[j], equinoctial=eqv[j],
-            )
-        return results
-
-    def fit(self, devices, bases):
-        """Every row's result, in dataset order: the kept rows fitted on
-        ``devices`` (``bases(device)`` gives :func:`base_arrays` there)."""
+    def fit(self, devices, bases) -> _IodColumns:
+        """Every row's result as columns in dataset order: the kept rows
+        fitted on ``devices`` (``bases(device)`` gives :func:`base_arrays`
+        there); a kept row without a finite RMS failed."""
         with trace.span("iod"):
+            cols = self.cols
             for part in map_devices(devices, lambda d, i: self.part(d, i, lambda: bases(d)), range(len(devices))):
-                self.results.update(part)
-            return {tid: self.results[tid] for tid in self.dataset.traj_ids}
+                if part is None:
+                    continue
+                ka, kb, (rms, kind, el, eqv, epoch, corrected) = part
+                rows = self.kept[ka:kb]
+                cols.rms[rows], cols.kind[rows], cols.elements[rows] = rms, kind, el
+                cols.equinoctial[rows], cols.epoch[rows], cols.corrected[rows] = eqv, epoch, corrected
+                cols.ok[rows] = np.isfinite(rms)
+                for j in np.nonzero(~np.isfinite(rms))[0].tolist():
+                    cols.errors[int(rows[j])] = str(NoViableOrbit(int(self.kt[ka + j]) * self.n_real))
+            return cols
 
 
 def device_bases(dataset, cache):
@@ -553,7 +604,7 @@ def _fit_full_iod(
     if cache is None:
         cache = ObserverCache.build(dataset, ephem, ut1, device=devices[0])
     batch = _IodBatch(dataset, params, seed, _padded_layout(dataset), devices, draws, slim)
-    return batch.fit(devices, device_bases(dataset, cache))
+    return batch.fit(devices, device_bases(dataset, cache)).results()
 
 
 def fit_full_iod(

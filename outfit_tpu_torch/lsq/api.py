@@ -31,7 +31,6 @@ Results do not depend on it: the loops are lane-isolated.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
@@ -54,6 +53,7 @@ from outfit_tpu_torch.iod.api import (
     _gather_bias,
     _gather_obs_tables,
     _IodBatch,
+    _IodColumns,
     _padded_layout,
     device_bases,
     prepare_dataset,
@@ -62,6 +62,7 @@ from outfit_tpu_torch.iod.params import IODParams
 from outfit_tpu_torch.lsq.config import DifferentialCorrectionConfig
 from outfit_tpu_torch.lsq.iteration import SEL_ACTIVE, ObsArrays
 from outfit_tpu_torch.lsq.loop import STATUS_OK, check_supported, differential_correction
+from outfit_tpu_torch.lsq.table import IOD_OK, LsqTable, _blank_columns
 from outfit_tpu_torch.observations.error_model import ErrorModel
 from outfit_tpu_torch.observer.cache import ObserverCache
 from outfit_tpu_torch.observations.dataset import ObsDataset
@@ -93,7 +94,7 @@ def _status_name(code):
     return _STATUS_NAMES.get(code, f"status={code}")
 
 
-@dataclass(slots=True)
+@dataclasses.dataclass(slots=True)
 class LsqResult:
     """Per-trajectory LSQ outcome.
 
@@ -164,38 +165,38 @@ class LsqResult:
 DifferentialCorrectionOutput = LsqResult
 
 
-def _screen_seeds(tids, initial_orbits):
-    """``(results, rows)`` of ``tids``: the error results of those without a
-    usable seed, and ``[(tid, seed)]`` of the rows to correct."""
-    results: Dict[str, LsqResult] = {}
-    rows = []
-    for tid in tids:
-        iod = initial_orbits.get(tid)
-        if iod is None or not iod.ok or iod.equinoctial is None:
-            err = iod.error if iod is not None else "no IOD seed"
-            results[tid] = LsqResult(tid, ok=False, error=f"IOD failed: {err}", iod=iod)
-            continue
-        if not np.isfinite(iod.equinoctial).all():
-            results[tid] = LsqResult(tid, ok=False, error="IOD seed not finite", iod=iod)
-            continue
-        rows.append((tid, iod))
-    return results, rows
+def _seed_table(seeds):
+    """The fit's table, its IOD columns filled from ``seeds``
+    (:class:`_IodColumns`), and the mask of the rows with a usable seed
+    (ok, finite equinoctial elements), which the correction fills in.  A
+    row without one keeps its error text, as ``LsqTable.from_results``
+    keeps it."""
+    ok = seeds.ok
+    t = LsqTable(seeds.traj_ids, **_blank_columns(len(ok)))
+    t.kept[ok] = t.iod_ok[ok] = True
+    t.iod_error_code[ok] = IOD_OK
+    for name in ("rms", "kind", "corrected", "epoch", "elements", "equinoctial"):
+        getattr(t, "iod_" + name)[ok] = getattr(seeds, name)[ok]
+    usable = ok & np.isfinite(seeds.equinoctial).all(axis=1)
+    for i in np.nonzero(~usable)[0].tolist():
+        tid, text = t.traj_ids[i], seeds.errors.get(i)
+        if ok[i]:  # the IOD stage stands; the row's own error text
+            t.host_errors[tid] = f"IOD failed: {text}" if i in seeds.errors else "IOD seed not finite"
+        elif text:
+            t.host_errors[tid] = text
+    return t, usable
 
 
-def _correct(layout, row_of, rows, config, base, device, slim=False, ephem=None):
-    """Differential correction of ``rows`` (``[(tid, seed)]``) on ``device``,
-    every row at the dataset's padded width.  Returns the per-row host
-    arrays (status, elements, RMS, covariance lower triangle, active
-    observations, iterations) and the pre-warm's trip count.  ``slim``: the
-    covariance crosses to the host as float32.  ``ephem``: for an N-body
+def _correct(layout, rsel, el0, ep0, config, base, device, slim=False, ephem=None):
+    """Differential correction of the dataset rows ``rsel`` from the seed
+    elements ``el0`` (T, 6) at epochs ``ep0`` on ``device``, every row at
+    the dataset's padded width.  Returns the per-row host arrays (status,
+    elements, RMS, covariance lower triangle, active observations,
+    iterations) and the pre-warm's trip count.  ``slim``: the covariance
+    crosses to the host as float32.  ``ephem``: for an N-body
     ``config.propagator`` (moved to ``device`` here)."""
     with trace.span("correct"):
         valid_all, glob_all = layout
-        T = len(rows)
-        rsel = np.fromiter((row_of[tid] for tid, _ in rows), np.int64, count=T)
-        el0 = np.stack([np.asarray(iod.equinoctial, np.float64) for _, iod in rows])
-        ep0 = np.fromiter((iod.epoch for _, iod in rows), np.float64, count=T)
-
         valid = torch.as_tensor(valid_all[rsel], device=device)
         glob = torch.as_tensor(glob_all[rsel], device=device)
         obs = ObsArrays(*_gather_obs_tables(base, glob, valid), valid, *_gather_bias(base, glob, valid))
@@ -218,70 +219,26 @@ def _correct(layout, row_of, rows, config, base, device, slim=False, ephem=None)
 
 
 def _add_results(results, rows, parts, valid_all, row_of):
-    """The ``LsqResult`` of each of ``rows`` added to ``results``, from the
-    :func:`_correct` outputs of its consecutive chunks ``parts``.  A row's
-    iteration count holds its chunk's pre-warm trip count; one batch's would
-    be the largest chunk's (its slowest row), and every row gets that."""
+    """The corrected rows written into the fit's table ``results`` from the
+    :func:`_correct` outputs of their consecutive chunks ``parts``:
+    ``rows`` names them as ``(traj_id, row)`` pairs, ``row_of`` holds their
+    rows.  A row whose correction failed falls back to its seed orbit
+    (diff_cor mod.rs:113), held in the IOD columns.  A row's iteration
+    count holds its chunk's pre-warm trip count; one batch's would be the
+    largest chunk's (its slowest row), and every row gets that."""
     prewarm = max(p for _, p in parts)
-    status, elements, rms, cov_tri, n_active_vec = (
-        np.concatenate([a[k] for a, _ in parts]) for k in range(5)
-    )
+    status, elements, rms, cov_tri, n_active = (np.concatenate([a[k] for a, _ in parts]) for k in range(5))
     its = np.concatenate([a[5] + (prewarm - p) for a, p in parts])
-    cov = _unpack_cov(cov_tri.astype(np.float64, copy=False))
-    sigmas = uncertainties_from_covariance(torch.from_numpy(cov)).numpy()
-
-    ok_l = ((status == STATUS_OK) & np.isfinite(elements).all(axis=1)).tolist()
-    rsel = np.fromiter((row_of[tid] for tid, _ in rows), np.int64, count=len(rows))
-    nval_l = valid_all[rsel].sum(axis=1).tolist()
-    rms_l = rms.tolist()
-    nact_l = n_active_vec.tolist()
-    its_l = its.tolist()
-    status_l = status.tolist()
-    for t, (tid, iod) in enumerate(rows):
-        if ok_l[t]:
-            results[tid] = LsqResult(
-                tid,
-                ok=True,
-                status=status_l[t],
-                normalised_rms=rms_l[t],
-                epoch=float(iod.epoch),
-                equinoctial=elements[t],
-                covariance=cov[t],
-                uncertainties=sigmas[t],
-                n_active_obs=nact_l[t],
-                total_newton_iterations=its_l[t],
-                iod=iod,
-            )
-        else:
-            # fall back to the seed orbit (diff_cor mod.rs:113)
-            results[tid] = LsqResult(
-                tid,
-                ok=True,
-                error=_status_name(status_l[t]),
-                status=status_l[t],
-                fell_back_to_iod=True,
-                normalised_rms=float(iod.rms),
-                epoch=float(iod.epoch),
-                equinoctial=np.array(iod.equinoctial),
-                n_active_obs=nval_l[t],
-                iod=iod,
-            )
-
-
-def _as_table(dataset, res, minimal=False):
-    """The columnar form of a result dict.  The port builds it from the
-    per-row results (the JAX package's fused finalize fills the columns
-    directly): rows materialize identically, and an IOD failure carries
-    its error text in ``host_errors`` under ``IOD_HOST_SCREENED``.
-    ``minimal``: the converged rows' IOD element columns are NaN (the JAX
-    package's ``minimal_fetch`` contract)."""
-    from outfit_tpu_torch.lsq.table import LsqTable
-
-    table = LsqTable.from_results(dataset.traj_ids, res)
-    if minimal:
-        table.iod_elements[table.converged] = np.nan
-        table.iod_equinoctial[table.converged] = np.nan
-    return table
+    cov_tri = cov_tri.astype(np.float64, copy=False)
+    sigmas = uncertainties_from_covariance(torch.from_numpy(_unpack_cov(cov_tri))).numpy()
+    t, conv = results, (status == STATUS_OK) & np.isfinite(elements).all(axis=1)
+    c, f = row_of[conv], row_of[~conv]
+    t.ok[row_of], t.status[row_of], t.epoch[row_of] = True, status, t.iod_epoch[row_of]
+    t.converged[c], t.normalised_rms[c], t.equinoctial[c] = True, rms[conv], elements[conv]
+    t.covariance_tri[c], t.uncertainties[c] = cov_tri[conv], sigmas[conv]
+    t.n_active_obs[c], t.total_newton_iterations[c] = n_active[conv], its[conv]
+    t.fell_back_to_iod[f], t.normalised_rms[f], t.equinoctial[f] = True, t.iod_rms[f], t.iod_equinoctial[f]
+    t.n_active_obs[f] = valid_all[f].sum(axis=1)
 
 
 def _check_fetch_modes(as_table, minimal_fetch):
@@ -316,29 +273,42 @@ def _fit_lsq(
         if cache is None:
             cache = ObserverCache.build(dataset, ephem, ut1, device=devices[0])
         bases = device_bases(dataset, cache)
-        seeded = initial_orbits is not None
-        if not seeded:
-            initial_orbits = _IodBatch(dataset, iod_params.validated(), seed, layout, devices, draws, slim).fit(
-                devices, bases)
+        iods = None
+        if initial_orbits is None:
+            seeds = _IodBatch(dataset, iod_params.validated(), seed, layout, devices, draws, slim).fit(devices, bases)
         with trace.span("fit.prepare"):
-            res, rows = _screen_seeds(dataset.traj_ids, initial_orbits)
-            row_of = {tid: i for i, tid in enumerate(dataset.traj_ids)}
+            if initial_orbits is not None:
+                seeds, iods = _IodColumns.of(dataset.traj_ids, initial_orbits)
+            table, usable = _seed_table(seeds)
+            rsel = np.nonzero(usable)[0]
+            rows = list(zip([dataset.traj_ids[i] for i in rsel.tolist()], rsel.tolist()))
         parts = []
-        if rows:
+        if rsel.size:
 
             def work(device, chunk):
                 a, b = chunk
                 if a == b:
                     return None
-                return _correct(layout, row_of, rows[a:b], config, bases(device), device, slim, ephem)
+                r = rsel[a:b]
+                return _correct(layout, r, seeds.equinoctial[r], seeds.epoch[r], config, bases(device), device, slim,
+                                ephem)
 
-            parts = map_devices(devices, work, chunk_bounds([(0, len(rows))], len(devices)))
+            parts = map_devices(devices, work, chunk_bounds([(0, rsel.size)], len(devices)))
         with trace.span("fit.assemble"):
-            if rows:
-                _add_results(res, rows, [p for p in parts if p is not None], layout[0], row_of)
-            if not seeded:
-                res = {tid: res[tid] for tid in dataset.traj_ids}
-            return _as_table(dataset, res, minimal) if as_table else res
+            if rsel.size:
+                _add_results(table, rows, [p for p in parts if p is not None], layout[0], rsel)
+            if minimal:
+                # the JAX package's minimal_fetch contract
+                table.iod_elements[table.converged] = np.nan
+                table.iod_equinoctial[table.converged] = np.nan
+            if as_table:
+                return table
+            if iods is None:
+                return table.to_results()
+            # a seeded fit: the rows without a usable seed first, as the
+            # JAX package returns them, each with the caller's FitResult
+            order = np.argsort(usable, kind="stable")
+            return {r.traj_id: r for r in table._rows(order, [iods[i] for i in order.tolist()])}
 
 
 def fit_lsq(
@@ -377,7 +347,7 @@ def fit_lsq(
     )
 
 
-@dataclass
+@dataclasses.dataclass
 class PendingLsq:
     """A fit made by :func:`fit_lsq_dispatch`, handed back by
     :func:`fit_lsq_finalize`.  The JAX package dispatches the device work
@@ -481,23 +451,43 @@ def _default_retry(r):
     return (not r.ok) or r.fell_back_to_iod
 
 
+def _retry(table, rows, retry_if):
+    """Which of ``table``'s rows ``rows`` to refit: with no ``retry_if``,
+    those whose converged flag is down (what :func:`_default_retry`
+    retries); a user's ``retry_if`` sees each row's ``LsqResult``."""
+    if retry_if is None:
+        return ~table.converged[rows]
+    return np.array([bool(retry_if(r)) for r in table._rows(rows)], bool)
+
+
+def _failed_subset(dataset, fail):
+    """The observations of ``dataset``'s trajectories where the row mask
+    ``fail`` holds, trajectory by trajectory in dataset order, each sorted
+    by epoch, and those trajectories' rows (one without observations drops
+    out)."""
+    idx = np.nonzero(fail[dataset.traj_index])[0]
+    idx = idx[np.lexsort((dataset.mjd_tt[idx], dataset.traj_index[idx]))]
+    return dataset.subset(idx), np.unique(dataset.traj_index[idx])
+
+
 def _fit_lsq_escalating(dataset, ephem, stages, seed, ut1, error_model, retry_if, device, draws=None):
     if not stages:
         raise ValueError("fit_lsq_escalating needs at least one (params, config) stage")
-    retry_if = retry_if or _default_retry
     cur = dataset
-    results: Dict[str, LsqResult] = {}
     for k, (params, cfg) in enumerate(stages):
-        res = _fit_lsq(cur, ephem, params, cfg, seed, ut1, error_model, None, None, device, draws)
-        results.update(res)
+        tab = _fit_lsq(cur, ephem, params, cfg, seed, ut1, error_model, None, None, device, draws, as_table=True)
+        if k == 0:
+            table, at = tab, np.arange(len(tab))  # at: each row of ``cur``'s row in ``table``
+        else:
+            table._set_rows(at, tab, np.arange(len(tab)))
         if k == len(stages) - 1:
             break
-        retry = {tid for tid, r in res.items() if retry_if(r)}
-        parts = [g for tid, g in cur.trajectory_groups() if tid in retry and g.size]
-        if not parts:
+        cur, rows = _failed_subset(cur, _retry(tab, np.arange(len(tab)), retry_if))
+        if not rows.size:
             break
-        cur = cur.subset(np.concatenate(parts))
-    return results
+        at = at[rows]
+    with trace.span("fit.assemble"):
+        return table.to_results()
 
 
 def fit_lsq_escalating(
@@ -526,79 +516,68 @@ def _fit_lsq_stream_escalating(
 ):
     if not stages:
         raise ValueError("needs at least one (params, config) stage")
-    user_retry = retry_if is not None
-    retry_if = retry_if or _default_retry
     for name in ("depth", "prefetch"):  # accepted, no effect (fit_lsq_stream)
         stream_kw.pop(name, None)
     stream_kw = dict(dict(as_table=True, slim_fetch=False, minimal_fetch=False), **stream_kw)
+    as_table = stream_kw.pop("as_table")
     params0, cfg0 = stages[0]
     for _, cfg in stages[1:]:
         check_supported(cfg)
-    held = []  # [(dataset, results, [failed tids])]
+    held = []  # [(dataset, table, its rows to refit)]
 
-    def failed_tids(res):
-        if isinstance(res, dict):
-            return [tid for tid, r in res.items() if retry_if(r)]
-        # the default predicate retries exactly the rows whose converged
-        # flag is down; a user predicate sees every row
-        tids = np.asarray(res.traj_ids, object)
-        if not user_retry:
-            tids = tids[~np.asarray(res.converged)]
-        return [tid for tid in tids if retry_if(res.result(tid))]
+    def retried(at):
+        """The held rows ``at`` ((held index, row) pairs, by held index) that
+        the predicate retries; it sees their clean ids, never the prefix."""
+        return np.concatenate([_retry(held[h][1], at[at[:, 0] == h, 1], retry_if)
+                               for h in np.unique(at[:, 0]).tolist()])
 
     def flush():
         """One batched pass per richer stage over the held datasets'
-        failures; patch them in and yield the held datasets in order."""
+        failures, copied into their tables; yield the held datasets in
+        order, each as a dict when asked for one."""
         if held:
             with trace.span("escalate"):
                 refit()
-        out = [(ds, res) for ds, res, _ in held]
+        out = [(ds, tab) for ds, tab, _ in held]
         held.clear()
-        return out
+        if as_table:
+            return out
+        with trace.span("fit.assemble"):
+            return [(ds, tab.to_results()) for ds, tab in out]
 
     def refit():
-        parts, prefixes = [], []
-        for hi, (ds, _res, fails) in enumerate(held):
-            fset = set(fails)
-            rows = [g for tid, g in ds.trajectory_groups() if tid in fset and g.size]
-            if rows:
-                parts.append(ds.subset(np.concatenate(rows)))
-                prefixes.append(str(hi))
+        parts, at = [], []
+        for h, (ds, _tab, fail) in enumerate(held):
+            sub, rows = _failed_subset(ds, fail)
+            if rows.size:
+                parts.append((h, sub))
+                at.append(np.stack([np.full(rows.size, h), rows], axis=1))
         if not parts:
             trace.escalation.add(flushes=1)
             return
-        # held-index-prefixed ids: the same id may occur in several
-        # held datasets, and the prefix selects the escalated noise
-        cur = ObsDataset.concat(parts, rename=lambda k, tid: f"{prefixes[k]}|{tid}")
+        # held-index-prefixed ids: the same id may occur in several held
+        # datasets, and the prefix selects the escalated noise
+        cur = ObsDataset.concat([sub for _, sub in parts], rename=lambda k, tid: f"{parts[k][0]}|{tid}")
+        at = first = np.concatenate(at)  # each refit row's (held index, row)
         trace.escalation.add(flushes=1, rows=len(cur.traj_ids))
-        last = {}  # each escalated row's result at the last stage it ran
         for k, (p, c) in enumerate(stages[1:], start=1):
-            res_k = _fit_lsq(cur, ephem, p, c, seed, ut1, error_model, None, None, device, draws)
-            clean = {}
-            for mtid, r in res_k.items():
-                hi_s, tid = mtid.split("|", 1)
-                rr = dataclasses.replace(r, traj_id=tid)
-                clean[mtid] = rr
-                tgt = held[int(hi_s)][1]
-                if isinstance(tgt, dict):
-                    tgt[tid] = rr
-                else:
-                    tgt.patch_row(tid, rr)
-            last.update(clean)
+            tab = _fit_lsq(cur, ephem, p, c, seed, ut1, error_model, None, None, device, draws, as_table=True)
+            for h in np.unique(at[:, 0]).tolist():
+                m = at[:, 0] == h
+                held[h][1]._set_rows(at[m, 1], tab, np.nonzero(m)[0])
             if k == len(stages) - 1:
                 break
-            # the predicate sees the clean ids, never the prefix
-            retry = {t for t, rr in clean.items() if retry_if(rr)}
-            rows = [g for t, g in cur.trajectory_groups() if t in retry and g.size]
-            if not rows:
+            cur, rows = _failed_subset(cur, retried(at))
+            if not rows.size:
                 break
-            cur = cur.subset(np.concatenate(rows))
-        trace.escalation.add(recovered=sum(not retry_if(rr) for rr in last.values()))
+            at = at[rows]
+        trace.escalation.add(recovered=int((~retried(first)).sum()))
 
-    for ds, res in _fit_lsq_stream(
-        datasets, ephem, params0, cfg0, seed, ut1, error_model, device=device, draws=draws, **stream_kw,
+    _check_fetch_modes(as_table, stream_kw["minimal_fetch"])
+    for ds, tab in _fit_lsq_stream(
+        datasets, ephem, params0, cfg0, seed, ut1, error_model, device=device, draws=draws, as_table=True, **stream_kw,
     ):
-        held.append((ds, res, failed_tids(res)))
+        held.append((ds, tab, _retry(tab, np.arange(len(tab)), retry_if)))
         if len(held) >= max(flush_every, 1):
             yield from flush()
     yield from flush()

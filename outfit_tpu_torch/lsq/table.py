@@ -1,5 +1,5 @@
 # Source: outfit_tpu/lsq/table.py (copied; imports retargeted to this package;
-# result() keeps a stored ok=False, see there).
+# rows materialize in one pass, _rows, which keeps a stored ok=False, see there).
 """Columnar result container for survey-scale fused fits.
 
 The dict-of-``LsqResult`` API (parity: ``FullOrbitResult``,
@@ -131,87 +131,69 @@ class LsqTable:
 
     def iod_result(self, traj_id):
         """Materialize the IOD stage of one row as a ``FitResult``."""
-        from outfit_tpu_torch.iod.api import FitResult
+        return self._iod_rows(np.array([self._row_index(traj_id)]))[0]
 
-        i = self._row_index(traj_id)
-        if not self.iod_ok[i]:
-            return FitResult(traj_id, ok=False, error=self.iod_error(i))
-        return FitResult(
-            traj_id,
-            ok=True,
-            rms=float(self.iod_rms[i]),
-            corrected=bool(self.iod_corrected[i]),
-            epoch=float(self.iod_epoch[i]),
-            kind=int(self.iod_kind[i]),
-            elements=self.iod_elements[i],
-            equinoctial=self.iod_equinoctial[i],
-        )
+    def _iod_rows(self, idx):
+        """The IOD stage of rows ``idx`` as ``FitResult`` objects."""
+        from outfit_tpu_torch.iod.api import _fit_results
+
+        cols = (self.iod_ok, self.iod_rms, self.iod_corrected, self.iod_epoch, self.iod_kind, self.iod_elements,
+                self.iod_equinoctial)
+        return _fit_results([self.traj_ids[i] for i in idx.tolist()], idx, cols, self.iod_error)
 
     def result(self, traj_id):
         """Materialize one row as the ``LsqResult`` the dict API returns."""
-        from outfit_tpu_torch.lsq.api import LsqResult, _status_name
+        return self._rows(np.array([self._row_index(traj_id)]))[0]
 
-        i = self._row_index(traj_id)
-        iod = self.iod_result(traj_id)
-        code = int(self.iod_error_code[i])
-        # trust the stored ok flag before inferring from the IOD columns:
-        # hand-built results (from_results with r.iod=None — migration /
-        # test paths) have no IOD stage, and inferring "IOD failed" from
-        # its absence silently flipped their ok=True on round trip.  The
-        # device pipeline always fills both, so its rows never hit the
-        # ok[i]-True-with-failed-IOD combination
-        if not self.ok[i] and (not self.kept[i] or not iod.ok):
-            return LsqResult(
-                traj_id, ok=False,
-                error=f"IOD failed: {iod.error}", iod=iod,
-            )
-        if code == IOD_SEED_NOT_FINITE:
-            return LsqResult(
-                traj_id, ok=False, error="IOD seed not finite", iod=iod
-            )
-        if not self.ok[i]:
-            # the stored flag holds for a kept row with a good IOD too (the
-            # JAX table returns such a hand-built row as ok=True); its error
-            # text was kept in ``host_errors`` by _fill_row
-            return LsqResult(
-                traj_id, ok=False, error=self.host_errors.get(traj_id), iod=iod
-            )
-        if self.converged[i]:
-            return LsqResult(
-                traj_id,
-                ok=True,
-                status=int(self.status[i]),
-                normalised_rms=float(self.normalised_rms[i]),
-                epoch=float(self.epoch[i]),
-                equinoctial=self.equinoctial[i],
-                covariance=self.covariance_tri[i][_TRI_EXPAND].reshape(6, 6),
-                uncertainties=self.uncertainties[i],
-                n_active_obs=int(self.n_active_obs[i]),
-                total_newton_iterations=int(
-                    self.total_newton_iterations[i]
-                ),
-                iod=iod,
-            )
-        return LsqResult(
-            traj_id,
-            ok=True,
-            error=_status_name(int(self.status[i])),
-            status=int(self.status[i]),
-            fell_back_to_iod=True,
-            normalised_rms=float(self.normalised_rms[i]),
-            epoch=float(self.epoch[i]),
-            equinoctial=np.array(self.equinoctial[i]),
-            n_active_obs=int(self.n_active_obs[i]),
-            iod=iod,
-        )
+    def _rows(self, idx=None, iods=None):
+        """Rows ``idx`` (default: every row) as ``LsqResult`` objects, in one
+        pass that reads each column once.  ``iods``: the rows' ``LsqResult.iod``
+        objects (a seeded fit's own ``FitResult``, None where the caller gave
+        no seed), default the IOD columns materialized."""
+        from outfit_tpu_torch.lsq.api import LsqResult, _status_name, _unpack_cov
 
-    def __getitem__(self, traj_id):
-        return self.result(traj_id)
+        idx = np.arange(len(self)) if idx is None else np.asarray(idx, np.int64)
+        if iods is None:
+            iods = self._iod_rows(idx)
+        cols = (self.ok, self.kept, self.iod_ok, self.iod_error_code, self.converged, self.status,
+                self.normalised_rms, self.epoch, self.n_active_obs, self.total_newton_iterations)
+        ok, kept, iod_ok, code, conv, status, rms, epoch, n_act, its = (c[idx].tolist() for c in cols)
+        tids, eq, sig = self.traj_ids, self.equinoctial, self.uncertainties
+        cov = list(_unpack_cov(self.covariance_tri[idx]))
+        out = []
+        for j, (i, iod) in enumerate(zip(idx.tolist(), iods)):
+            tid = tids[i]
+            # trust the stored ok flag before inferring from the IOD columns:
+            # hand-built results (from_results with r.iod=None) have no IOD
+            # stage, and inferring "IOD failed" from its absence would flip
+            # their ok=True on round trip
+            if not ok[j] and (not kept[j] or not iod_ok[j]):
+                err = iod.error if iod is not None else "no IOD seed"
+                r = LsqResult(tid, ok=False, error=f"IOD failed: {err}", iod=iod)
+            elif code[j] == IOD_SEED_NOT_FINITE:
+                r = LsqResult(tid, ok=False, error="IOD seed not finite", iod=iod)
+            elif not ok[j]:
+                # the stored flag holds for a kept row with a good IOD too
+                # (the JAX table returns such a hand-built row as ok=True);
+                # its error text is in ``host_errors`` (_fill_row, lsq.api._seed_table)
+                r = LsqResult(tid, ok=False, error=self.host_errors.get(tid), iod=iod)
+            elif conv[j]:
+                r = LsqResult(tid, ok=True, status=status[j], normalised_rms=rms[j], epoch=epoch[j],
+                              equinoctial=eq[i], covariance=cov[j], uncertainties=sig[i],
+                              n_active_obs=n_act[j], total_newton_iterations=its[j], iod=iod)
+            else:
+                r = LsqResult(tid, ok=True, error=_status_name(status[j]), status=status[j], fell_back_to_iod=True,
+                              normalised_rms=rms[j], epoch=epoch[j], equinoctial=np.array(eq[i]),
+                              n_active_obs=n_act[j], iod=iod)
+            out.append(r)
+        return out
+
+    __getitem__ = result
 
     def to_results(self) -> Dict[str, object]:
         """Materialize the full per-trajectory dict (identical to the
         ``as_table=False`` return; used for parity tests and migration)."""
-        return {tid: self.result(tid) for tid in self.traj_ids}
+        return {r.traj_id: r for r in self._rows()}
 
     def to_dataframe(self):
         """Flat pandas DataFrame, one row per trajectory: scalar columns
@@ -260,30 +242,7 @@ class LsqTable:
         """Build a table from a ``{traj_id: LsqResult}`` dict (the
         degenerate host-resolved path — per-row cost is fine there)."""
         tids = list(traj_ids)
-        N = len(tids)
-        t = cls(
-            traj_ids=tids,
-            kept=np.zeros(N, bool),
-            iod_ok=np.zeros(N, bool),
-            iod_error_code=np.full(N, IOD_HOST_SCREENED, np.int8),
-            iod_rms=np.full(N, np.nan),
-            iod_kind=np.full(N, -1, np.int8),
-            iod_corrected=np.zeros(N, bool),
-            iod_epoch=np.full(N, np.nan),
-            iod_elements=np.full((N, 6), np.nan),
-            iod_equinoctial=np.full((N, 6), np.nan),
-            ok=np.zeros(N, bool),
-            converged=np.zeros(N, bool),
-            fell_back_to_iod=np.zeros(N, bool),
-            status=np.full(N, -1, np.int8),
-            normalised_rms=np.full(N, np.nan),
-            epoch=np.full(N, np.nan),
-            equinoctial=np.full((N, 6), np.nan),
-            covariance_tri=np.full((N, 21), np.nan),
-            uncertainties=np.full((N, 6), np.nan),
-            n_active_obs=np.zeros(N, np.int32),
-            total_newton_iterations=np.zeros(N, np.int32),
-        )
+        t = cls(tids, **_blank_columns(len(tids)))
         for i, tid in enumerate(tids):
             r = results.get(tid)
             if r is None:
@@ -292,37 +251,24 @@ class LsqTable:
         return t
 
     def patch_row(self, traj_id, r) -> None:
-        """Overwrite one row from an ``LsqResult`` — the escalation path
-        (``fit_lsq_stream_escalating``) re-fits failed trajectories with a
-        richer stage and patches their rows in place."""
-        i = self._row_index(traj_id)
-        # reset EVERY conditionally-written field — including the IOD
-        # columns and ``kept``: _fill_row writes iod_* only when the refit
-        # result carries an IOD, so stale lean-stage values would
-        # otherwise mix stages in one row (iod_ok=False rows reporting
-        # IOD_OK codes with the lean seed's elements)
-        self.kept[i] = False
-        self.iod_ok[i] = False
-        self.iod_error_code[i] = IOD_HOST_SCREENED
-        self.iod_rms[i] = np.nan
-        self.iod_kind[i] = -1
-        self.iod_corrected[i] = False
-        self.iod_epoch[i] = np.nan
-        self.iod_elements[i] = np.nan
-        self.iod_equinoctial[i] = np.nan
-        self.ok[i] = False
-        self.converged[i] = False
-        self.fell_back_to_iod[i] = False
-        self.status[i] = -1
-        self.normalised_rms[i] = np.nan
-        self.epoch[i] = np.nan
-        self.equinoctial[i] = np.nan
-        self.covariance_tri[i] = np.nan
-        self.uncertainties[i] = np.nan
-        self.n_active_obs[i] = 0
-        self.total_newton_iterations[i] = 0
-        self.host_errors.pop(traj_id, None)
-        self._fill_row(i, traj_id, r)
+        """Overwrite one row from an ``LsqResult`` (``table[traj_id] = r``):
+        every column, the IOD ones and ``kept`` included, so that no stale
+        value of an earlier stage stays in the row."""
+        self._set_rows([self._row_index(traj_id)], LsqTable.from_results([traj_id], {traj_id: r}), [0])
+
+    __setitem__ = patch_row
+
+    def _set_rows(self, rows, src, src_rows) -> None:
+        """Rows ``rows`` overwritten by the table ``src``'s rows ``src_rows``,
+        every column and each row's ``host_errors`` entry (the escalation
+        copies a richer stage's rows back this way)."""
+        for name in _COLUMNS:
+            getattr(self, name)[rows] = getattr(src, name)[src_rows]
+        for i, j in zip(np.asarray(rows).tolist(), np.asarray(src_rows).tolist()):
+            tid, text = self.traj_ids[i], src.host_errors.get(src.traj_ids[j])
+            self.host_errors.pop(tid, None)
+            if text is not None:
+                self.host_errors[tid] = text
 
     def _fill_row(self, i, tid, r) -> None:
         """Populate row ``i`` from an ``LsqResult`` (shared by
@@ -387,21 +333,35 @@ class LsqTable:
                 t.uncertainties[i] = r.uncertainties
 
 
+def _blank_columns(n):
+    """Every column of an ``n``-row table at its inert fill (NaN / -1 /
+    False, an IOD stage that never ran)."""
+    return dict(
+        kept=np.zeros(n, bool),
+        iod_ok=np.zeros(n, bool),
+        iod_error_code=np.full(n, IOD_HOST_SCREENED, np.int8),
+        iod_rms=np.full(n, np.nan),
+        iod_kind=np.full(n, -1, np.int8),
+        iod_corrected=np.zeros(n, bool),
+        iod_epoch=np.full(n, np.nan),
+        iod_elements=np.full((n, 6), np.nan),
+        iod_equinoctial=np.full((n, 6), np.nan),
+        ok=np.zeros(n, bool),
+        converged=np.zeros(n, bool),
+        fell_back_to_iod=np.zeros(n, bool),
+        status=np.full(n, -1, np.int8),
+        normalised_rms=np.full(n, np.nan),
+        epoch=np.full(n, np.nan),
+        equinoctial=np.full((n, 6), np.nan),
+        covariance_tri=np.full((n, 21), np.nan),
+        uncertainties=np.full((n, 6), np.nan),
+        n_active_obs=np.zeros(n, np.int32),
+        total_newton_iterations=np.zeros(n, np.int32),
+    )
+
+
+#: the per-row columns, in field order
+_COLUMNS = tuple(_blank_columns(0))
+
 #: lower-triangle index pair for covariance packing (built once)
 _TRIL_I_IDX, _TRIL_J_IDX = np.tril_indices(6)
-
-
-#: index map expanding a 21-slot lower triangle to a flat 6x6 row-major
-#: symmetric matrix (built once)
-def _tri_expand() -> np.ndarray:
-    idx = np.zeros((6, 6), np.int64)
-    k = 0
-    for r in range(6):
-        for c in range(r + 1):
-            idx[r, c] = k
-            idx[c, r] = k
-            k += 1
-    return idx.ravel()
-
-
-_TRI_EXPAND = _tri_expand()

@@ -287,17 +287,16 @@ class ObsDataset:
         """New dataset holding only the given observation rows (all columns,
         catalog codes and biases included)."""
         idx = np.asarray(indices, dtype=np.int64)
-        kept_traj = sorted(set(int(t) for t in self.traj_index[idx]))
-        tmap = {t: i for i, t in enumerate(kept_traj)}
+        kept_traj, traj_index = np.unique(self.traj_index[idx], return_inverse=True)
         return ObsDataset(
             mjd_tt=self.mjd_tt[idx].copy(),
             ra=self.ra[idx].copy(),
             dec=self.dec[idx].copy(),
             ra_error=self.ra_error[idx].copy(),
             dec_error=self.dec_error[idx].copy(),
-            traj_index=np.array([tmap[int(t)] for t in self.traj_index[idx]], dtype=np.int64),
+            traj_index=traj_index.astype(np.int64, copy=False),
             observer_index=self.observer_index[idx].copy(),
-            traj_ids=[self.traj_ids[t] for t in kept_traj],
+            traj_ids=[self.traj_ids[t] for t in kept_traj.tolist()],
             observers=list(self.observers),
             mag=self.mag[idx].copy() if len(self.mag) == len(self) else self.mag,
             catalog=self.catalog[idx].copy() if len(self.catalog) == len(self) else self.catalog,

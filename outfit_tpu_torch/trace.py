@@ -58,14 +58,16 @@ from typing import NamedTuple, Optional
 
 #: the spans the program opens, outermost first: ``escalate`` (a flush of
 #: ``fit_lsq_stream_escalating``: the held datasets' failures refitted by
-#: the richer stages and patched in), ``fit`` (``_fit_lsq``),
+#: the richer stages and copied into the held tables), ``fit`` (``_fit_lsq``),
 #: ``fit.prepare`` (dataset preparation, the padded layout, the device
-#: bases' upload, the seeds' screen), ``observer_cache``
+#: bases' upload, a seed map read into columns and the seeds' screen,
+#: ``lsq.api._seed_table``), ``observer_cache``
 #: (``ObserverCache.build``), ``iod`` (``_IodBatch.fit``),
 #: ``iod.fg_correction`` (``gauss._fg_correction``), ``iod.scoring``
 #: (``scoring.rms_orbit_error``: the RMS scoring of the candidates and of
 #: the polished winners), ``correct`` (``lsq.api._correct``, one per device
-#: chunk), ``fit.assemble`` (``_add_results``, ``_as_table``),
+#: chunk), ``fit.assemble`` (``lsq.api._add_results`` filling the fit's
+#: ``LsqTable``, and in dict mode the dict made from it),
 #: ``propagate`` (``propagate_nbody``), ``dop853`` (``dop853_integrate``)
 SPAN_NAMES = (
     "escalate", "fit", "fit.prepare", "observer_cache", "iod", "iod.fg_correction", "iod.scoring", "correct",

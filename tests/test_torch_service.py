@@ -46,13 +46,14 @@ from outfit_tpu_torch import (
     fit_lsq_escalating,
     fit_lsq_stream,
     fit_lsq_stream_escalating,
+    trace,
 )
 from outfit_tpu_torch.lsq.api import _fit_lsq, _fit_lsq_escalating, _fit_lsq_stream_escalating
 from outfit_tpu_torch.observations.observatories import Observer
 
 from test_lsq import _EPOCHS, _KEP_TRUE, _synth_dataset
 from test_torch_iod import jax_draws
-from test_torch_table import _assert_result_equal
+from test_torch_table import _assert_result_equal, _columns
 
 torch.set_num_threads(2)
 
@@ -173,6 +174,33 @@ def test_stream_slim_and_minimal_contracts(teph, sequential):
         assert np.isnan(m.iod_equinoctial[m.converged]).all() and np.isnan(m.iod_elements[m.converged]).all()
 
 
+def test_seeded_fit_keeps_the_callers_seeds_and_its_table_is_its_dict(teph):
+    """A seeded fit's rows carry the caller's own FitResult objects (None
+    where it gave no seed), and its table is ``LsqTable.from_results`` of
+    its dict, column for column, error texts included."""
+    def dataset():
+        return ObsDataset.concat([_fixture(n) for n in NAMES])
+
+    kw = dict(error_model=ErrorModel.fcct14(), device="cpu")
+    seeds = fit_full_iod(dataset(), teph, IODParams(**SMALL), 42, **kw)
+    tids = list(seeds)
+    del seeds[tids[0]]  # no seed
+    seeds[tids[1]].equinoctial = np.where(np.arange(6) == 2, np.nan, seeds[tids[1]].equinoctial)  # not finite
+    res = fit_lsq(dataset(), teph, initial_orbits=seeds, **kw)
+    assert sorted(res) == sorted(tids) and list(res)[:2] == tids[:2]
+    assert all(res[tid].iod is seeds.get(tid) for tid in tids)
+    assert res[tids[0]].error == "IOD failed: no IOD seed" and res[tids[1]].error == "IOD seed not finite"
+    assert res[tids[2]].ok
+    tab = fit_lsq(dataset(), teph, initial_orbits=seeds, as_table=True, **kw)
+    ref = LsqTable.from_results(tab.traj_ids, res)
+    for name in _columns(tab) + ["host_errors"]:
+        x, y = getattr(tab, name), getattr(ref, name)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), name
+        else:
+            assert x == y, name
+
+
 def test_iod_stream_equals_sequential(teph):
     p = IODParams(**SMALL)
     datasets = [_fixture(n) for n in NAMES]
@@ -273,6 +301,51 @@ def test_stream_escalating_matches_jax(jeph, teph):
         for tid in tab.traj_ids:
             _assert_lsq_close(tab.result(tid), tj.result(tid), tid)
         assert tab.result("A").ok and tab.result("B").ok
+
+
+def test_stream_escalating_dicts_are_its_tables_and_rows_the_rich_stage(jeph, teph):
+    """Three held datasets sharing the ids A and B, their observations out
+    of epoch order, flushed two then one; A fails the lean stage in each.
+    ``as_table=False`` yields exactly the tables' ``to_results()``, and each
+    escalated row is bitwise ``fit_lsq`` of its flush's renamed failures
+    under the rich stage."""
+    stages = [(IODParams(**ESC, max_perihelion_au=1.6), DifferentialCorrectionConfig()),
+              (IODParams(**ESC), DifferentialCorrectionConfig())]
+    shifts = (0.0, 0.05, 0.11)
+
+    def datasets():
+        out = []
+        for s in shifts:
+            ds = _to_port(_two_traj(jeph, s))
+            out.append(ds.subset(np.random.default_rng(int(s * 100) + 1).permutation(len(ds))))
+        assert not all((np.diff(d.mjd_tt) >= 0).all() for d in out)
+        return out
+
+    kw = dict(device="cpu", flush_every=2)
+    lean = [t for _, t in fit_lsq_stream(datasets(), teph, *stages[0], 42, as_table=True, device="cpu")]
+    failed = [[tid for tid, c in zip(t.traj_ids, t.converged) if not c] for t in lean]
+    assert all("A" in f for f in failed)
+    before = trace.escalation.rows
+    tables = list(fit_lsq_stream_escalating(datasets(), teph, stages, 42, **kw))
+    assert trace.escalation.rows - before == sum(map(len, failed))
+    dicts = list(fit_lsq_stream_escalating(datasets(), teph, stages, 42, as_table=False, **kw))
+    for (_, tab), (_, res) in zip(tables, dicts):
+        assert isinstance(tab, LsqTable) and isinstance(res, dict)
+        ref = tab.to_results()
+        assert list(res) == list(ref) == ["A", "B"]
+        for tid in ref:
+            _assert_result_equal(res[tid], ref[tid], tid)
+            assert res[tid].traj_id == tid and res[tid].iod.traj_id == tid
+    for group in ((0, 1), (2,)):
+        held = [datasets()[j] for j in group]
+        cur = ObsDataset.concat(
+            [d.subset(np.concatenate([d.trajectory_obs_indices(t) for t in failed[j]])) for d, j in zip(held, group)],
+            rename=lambda k, tid: f"{k}|{tid}")
+        rich = fit_lsq(cur, teph, *stages[1], 42, device="cpu")
+        for k, j in enumerate(group):
+            for tid in failed[j]:
+                _assert_result_equal(tables[j][1].result(tid), rich[f"{k}|{tid}"], (j, tid))
+    assert all(t.result("A").ok for _, t in tables)
 
 
 def test_stream_escalating_refit_fill_and_retry_predicates(jeph, teph):
